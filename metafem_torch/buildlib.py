@@ -13,12 +13,19 @@ from __future__ import annotations
 
 import hashlib
 import os
+import shutil
 import subprocess
 import tempfile
 from typing import Sequence
 
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "_build")
+#: the port's CUDA sources live here
+CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+#: nvcc flags of every hand-written kernel: Hopper (sm_90a), plain-C
+#: shared library
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 
 def build_shared(src: str, name: str, command: Sequence[str]) -> str:
@@ -42,3 +49,21 @@ def build_shared(src: str, name: str, command: Sequence[str]) -> str:
         if os.path.exists(tmp):
             os.remove(tmp)
     return so_path
+
+
+def nvcc() -> str:
+    """Path of nvcc (PATH, then the toolkit's default place)."""
+    path = shutil.which("nvcc")
+    if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        path = "/usr/local/cuda/bin/nvcc"
+    if path is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be "
+                           "built")
+    return path
+
+
+def build_cuda(name: str) -> str:
+    """Build ``csrc/<name>.cu`` for sm_90a (once per source content) and
+    return the library's path."""
+    return build_shared(os.path.join(CSRC_DIR, name + ".cu"), name,
+                        [nvcc(), *NVCC_FLAGS])

@@ -1,5 +1,6 @@
 """Linear solvers of the port: block-offset storage with its CUDA SpMV,
-BiCGStab, right-Jacobi preconditioning and the restart driver."""
+BiCGStab and Chebyshev, right-Jacobi preconditioning, the restart driver
+and lattice multigrid."""
 
 from .block_offset import OffsetMatrix, build_offset_layout  # noqa: F401
 from .driver import iterative_solve  # noqa: F401

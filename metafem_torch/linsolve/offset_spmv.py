@@ -31,38 +31,22 @@ counts kernel launches.
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
 from typing import Optional
 
 import torch
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "csrc", "offset_spmv.cu")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+from ..buildlib import build_cuda
+
 _LIB: Optional[ctypes.CDLL] = None
 #: per (group, device): the unit table [G, 2] and offsets [n_off], int64
 _TABLES: dict = {}
-
-
-def _nvcc() -> str:
-    path = shutil.which("nvcc")
-    if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
-        path = "/usr/local/cuda/bin/nvcc"
-    if path is None:
-        raise RuntimeError("nvcc not found: the offset SpMV kernel cannot "
-                           "be built")
-    return path
 
 
 def load_library() -> ctypes.CDLL:
     """Build (once per source content) and load the kernel library."""
     global _LIB
     if _LIB is None:
-        from ..buildlib import build_shared
-        lib = ctypes.CDLL(build_shared(_SRC, "offset_spmv",
-                                       [_nvcc(), *NVCC_FLAGS]))
+        lib = ctypes.CDLL(build_cuda("offset_spmv"))
         for name in ("offset_spmv_f64", "offset_spmv_f32"):
             fn = getattr(lib, name)
             fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 4
@@ -158,7 +142,16 @@ def group_mv(vals: torch.Tensor, xw: torch.Tensor, group,
         raise RuntimeError(f"offset_spmv kernel launch failed: CUDA error "
                            f"{err}")
     group_mv.launches += 1
+    group_mv.launches_by_dtype[xw.dtype] += 1
     return out
 
 
+#: kernel launches, in all and per float type
 group_mv.launches = 0
+group_mv.launches_by_dtype = {torch.float32: 0, torch.float64: 0}
+
+
+def reset_launches() -> None:
+    group_mv.launches = 0
+    for k in group_mv.launches_by_dtype:
+        group_mv.launches_by_dtype[k] = 0

@@ -16,8 +16,9 @@ Two functions are built (compile_Updater_GPU, 05_CodeGenerator.jl:265-291):
 ``k_linear(state)`` assembles the x-independent gradient blocks once per
 time step; ``res_k_nonlinear(state)`` assembles the residual and the
 state-dependent gradient blocks every Newton iteration, on top of the
-cached linear part.  Only the ``lin`` and ``nl`` phases run in this port;
-the two-float residual phases are not ported.
+cached linear part.  ``run_phase(state, phase)`` runs any phase of
+``_phase_parts``, which the freezes and the refined step use; the
+two-float residual phases are not ported.
 """
 
 from __future__ import annotations
@@ -159,16 +160,33 @@ def _assemble_part(tb: TensorTable, cw: CompiledWP, part_state: dict,
 
 
 def _phase_parts(wf: AssembleWeakform, phase: str):
-    """(res_bils, grad_bils) contributing in a phase: ``lin`` — the
-    x-independent gradient blocks, once per step; ``nl`` — residues and
-    x-dependent gradients, per Newton iteration.  (The reference's
-    refined-residual phases are not ported.)"""
+    """(res_bils, grad_bils) contributing in a phase.
+
+    Phases: ``lin`` — x-independent gradient blocks, once per step;
+    ``nl`` — residues + x-dependent gradients, per Newton iteration;
+    ``aff_lin`` — linear gradients of *affine* forms only (the frozen
+    f64 affine operator A_td of the refined step); ``aff_res`` —
+    residues of affine forms (evaluated at x=0 to freeze the constant
+    part b); ``nonaff_nl`` — residues and nonlinear gradients of
+    nonaffine forms (the small per-refinement-iteration assembly).  The
+    two-float mode's ``nonaff_res`` and ``nl_grad`` are not ported."""
     if phase == "lin":
         return [], wf.linear_gradients
     if phase == "nl":
         return wf.residues, wf.nonlinear_gradients
-    raise NotImplementedError(
-        f"assembly phase {phase!r} is not ported (lin, nl only)")
+    aff = wf.affine_form_ids()
+    if phase == "aff_lin":
+        return [], [g for g in wf.linear_gradients if g.form_id in aff]
+    if phase == "aff_res":
+        return [r for r in wf.residues if r.form_id in aff], []
+    if phase == "nonaff_nl":
+        return ([r for r in wf.residues if r.form_id not in aff],
+                wf.nonlinear_gradients)
+    if phase in ("nonaff_res", "nl_grad"):
+        raise NotImplementedError(
+            f"assembly phase {phase!r} belongs to the two-float residual "
+            "mode, not ported yet (ROADMAP.md queue 1, item 9)")
+    raise ValueError(f"unknown assembly phase {phase!r}")
 
 
 def _phase_bilinears(wf: AssembleWeakform, la: LocalAssembly,
@@ -236,8 +254,9 @@ def make_updaters(tb: TensorTable, compiled_wps: List[CompiledWP],
                   pattern: GlobalPattern,
                   functions: Dict[str, object],
                   fast_maps: Dict[str, dict] = None):
-    """Build (k_linear, res_k_nonlinear) as functions of the runtime
-    ``state`` dict.
+    """Build (k_linear, res_k_nonlinear, run_phase) as functions of the
+    runtime ``state`` dict; ``run_phase(state, phase)`` returns (residue,
+    K) of one phase of ``_phase_parts``.
 
     ``fast_maps``: {phase_key: {"r"|"k": {stream_idx: (fs_list,
     rest_cols)}}, "gather": {wp: fs_list}} — the lattice strided
@@ -262,7 +281,7 @@ def make_updaters(tb: TensorTable, compiled_wps: List[CompiledWP],
 
             def do_wf(wf: AssembleWeakform, part_state, is_boundary):
                 res_bils, grad_bils = _phase_parts(wf, phase)
-                if phase == "lin":
+                if phase in ("lin", "aff_lin"):
                     inner_infos: List[InnervarInfo] = []
                     exter_infos = wf.linear_extervar_infos
                 else:
@@ -348,4 +367,4 @@ def make_updaters(tb: TensorTable, compiled_wps: List[CompiledWP],
         residue, K = _run(state, "nl")
         return residue, state["K_linear"] + K
 
-    return k_linear, res_k_nonlinear
+    return k_linear, res_k_nonlinear, _run

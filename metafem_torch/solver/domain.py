@@ -20,8 +20,19 @@ linear solves are right-Jacobi BiCGStab over the block-offset SpMV.
     dom.compile()
     dom.update_one_step()
 
-Not ported yet: the freezes, the refined and jitted steps, multigrid,
-direct solvers, integration-point evaluation and checkpoints.
+The production path of ``bench.py`` freezes the operator once and then
+steps with exact float64 residuals and working-precision multigrid
+solves:
+
+    dom.freeze_linear_tangent()
+    dom.setup_mg(tune=False)
+    dom.freeze_refined_residual()
+    step = dom.make_refined_step(sv_func=krylov.chebyshev)
+    x, dx, res, refines = step(dom._runtime_state(), x, t, dt)
+
+Not ported yet: the two-float residual mode, the jitted step, the
+auxiliary-space multigrid, direct solvers, integration-point evaluation,
+freeze persistence and checkpoints.
 """
 
 from __future__ import annotations
@@ -35,7 +46,7 @@ import torch
 from ..config import DEFAULT_DTYPE, resolve_device
 from ..elements.discretization import (ClassicalDiscretization,
                                        initialize_classical_element)
-from ..linsolve import krylov
+from ..linsolve import krylov, multigrid
 from ..linsolve.block_offset import OffsetMatrix
 from ..linsolve.driver import iterative_solve
 from ..mesh.fem_mesh import WPMesh, build_wp_mesh
@@ -106,7 +117,18 @@ class FEM_Domain:
         self.state: Optional[dict] = None
         self._k_linear = None
         self._res_k = None
+        self._run_phase = None
         self._compiled_wps: List[CompiledWP] = []
+        self._device_maps: Dict[str, dict] = {}
+        # freezes (freeze_linear_tangent, freeze_refined_residual,
+        # setup_mg) and the multigrid occupancy mask
+        self._k_linear_td: Optional[torch.Tensor] = None
+        self._refined: Optional[dict] = None
+        self._mg_hier = None
+        self._mg_frozen: Optional[tuple] = None
+        self._mg_mask: Optional[torch.Tensor] = None
+        self._mg_spectrum: Optional[Tuple[float, float]] = None
+        self._mg_cheb = None
 
     def _tensor(self, arr, dtype=None) -> torch.Tensor:
         return torch.as_tensor(np.asarray(arr), dtype=dtype or self.dtype,
@@ -230,7 +252,7 @@ class FEM_Domain:
                        el_cp=wp.mesh.el_cp.astype(np.int64))
             for i, wp in enumerate(self.workpieces)]
         self._fast_maps = {"gather": {}}
-        self._k_linear, self._res_k = make_updaters(
+        self._k_linear, self._res_k, self._run_phase = make_updaters(
             self.tensor_table, self._compiled_wps, self.pattern,
             self.functions, fast_maps=self._fast_maps)
         # lattice node-gather fast path: el_cp columns as strided slices
@@ -247,12 +269,23 @@ class FEM_Domain:
                 mesh.el_cp.astype(np.int64), mesh.lattice_shape, in_block)
             if fs_list and rest_cols.size == 0:   # node reads need ALL
                 self._fast_maps["gather"][w_i] = fs_list
-        self._device_maps = {ph: self._build_phase_maps(ph)
-                             for ph in ("lin", "nl")}
+        self._device_maps = {}
+        self._ensure_device_maps("lin", "nl")
         self._ghost_diag = self._ghost_diag_vector()
+        # occupancy mask of the multigrid transfers (single lattice
+        # workpiece with ghost slots)
+        self._mg_mask = (multigrid.mask_for_domain(self)
+                         if len(self.workpieces) == 1 else None)
         self.update_mesh()
         if self.linear_solver is None:
             self.linear_solver = self.make_iterative_solver()
+
+    def _ensure_device_maps(self, *phases) -> None:
+        """Build the reduction maps of the given assembly phases on the
+        domain's device (idempotent)."""
+        for ph in phases:
+            if ph not in self._device_maps:
+                self._device_maps[ph] = self._build_phase_maps(ph)
 
     def _build_phase_maps(self, phase_key: str) -> dict:
         """Reduction maps of one assembly phase: lattice strided adds
@@ -354,16 +387,21 @@ class FEM_Domain:
     # ------------------------------------------------------------------
     # runtime state
     # ------------------------------------------------------------------
-    def _geometry_state(self) -> list:
-        """Geometry tables per workpiece, in the domain's dtype and on
-        its device."""
+    def _geometry_state(self, dtype=None, volume: bool = True) -> list:
+        """Geometry tables per workpiece on the domain's device, computed
+        from the host coordinates in ``dtype`` (the domain's by default).
+        ``volume=False`` skips the element tables (boundary-only views
+        for the refined step's nonaffine remainder)."""
         wp_states = []
         for wp in self.workpieces:
-            coords = self._tensor(wp.mesh.cp_coords)
+            coords = self._tensor(wp.mesh.cp_coords, dtype)
             el_cp = self._tensor(wp.mesh.el_cp, torch.int64)
-            itg_vals, itg_w = update_element_geometry(coords, el_cp, wp.disc)
-            el_state = {"itg_vals": itg_vals, "weights": itg_w,
-                        "el_cp": el_cp}
+            el_state = None
+            if volume:
+                itg_vals, itg_w = update_element_geometry(coords, el_cp,
+                                                          wp.disc)
+                el_state = {"itg_vals": itg_vals, "weights": itg_w,
+                            "el_cp": el_cp}
             bdy_state: Dict[int, list] = {}
             for bg_id, parts in wp.bdy_parts.items():
                 plist = []
@@ -387,18 +425,26 @@ class FEM_Domain:
     def refresh_fields(self) -> None:
         """Re-upload the named controlpoint columns (call after mutating
         mesh fields)."""
-        for i, wp in enumerate(self.workpieces):
-            self.state["wp"][i]["fields"] = {
-                name: self._tensor(col)
-                for name, col in wp.mesh.fields.items()}
+        for wps, fields in zip(self.state["wp"], self._fields()):
+            wps["fields"] = fields
 
     def set_field(self, wp_id: int, name: str, values) -> None:
         self.workpieces[wp_id].mesh.set_field(name, values)
+
+    def _fields(self, dtype=None) -> list:
+        """Named controlpoint columns per workpiece, in ``dtype``."""
+        return [{name: self._tensor(col, dtype)
+                 for name, col in wp.mesh.fields.items()}
+                for wp in self.workpieces]
 
     def _runtime_state(self) -> dict:
         ga = self.time_discretization
         return {**self.state,
                 "ghost_diag": self._ghost_diag,
+                "mg_mask": self._mg_mask,
+                "mg_frozen": self._mg_frozen,
+                "K_linear_td": self._k_linear_td,
+                "refined": self._refined,
                 "maps": self._device_maps,
                 "x_star": self.x,
                 "K_linear": torch.zeros(self.pattern.n_storage,
@@ -419,6 +465,132 @@ class FEM_Domain:
         residue, K_total = self._res_k(state)
         return (OffsetMatrix.from_values(K_total, self.pattern.offset_layout),
                 residue)
+
+    # ------------------------------------------------------------------
+    # freezes of the refined step (all on the domain's device)
+    # ------------------------------------------------------------------
+    def _one_hot_k_params(self, td: int, dtype) -> torch.Tensor:
+        one_hot = np.zeros(self.pattern.max_time_level + 1)
+        one_hot[td] = 1.0
+        return self._tensor(one_hot, dtype)
+
+    def freeze_linear_tangent(self) -> None:
+        """Precompute the per-time-level linear tangent components G_td
+        (x-independent), so the refined step combines them as
+        sum(K_params[td] * G_td) instead of re-assembling K_linear.  One
+        'lin' assembly per time level with one-hot K_params; the ghost
+        diagonal is subtracted (the combine adds it once).
+
+        Valid while geometry, controlpoint fields and global material
+        constants stay fixed; call again after changing any of them."""
+        ghost = self._ghost_diag
+        state = self._runtime_state()
+        comps = []
+        for td in range(self.pattern.max_time_level + 1):
+            st = dict(state)
+            st["K_params"] = self._one_hot_k_params(td, self.dtype)
+            G = self._k_linear(st)
+            if ghost is not None:
+                G = G - ghost     # added once at combine time, not per td
+            comps.append(G)
+        self._k_linear_td = torch.stack(comps)
+
+    def freeze_refined_residual(self) -> None:
+        """Freeze the exact-residual decomposition of the refined step:
+
+            R(x*) = sum_td A_td @ x*[td] + b + R_nonaffine(x*)
+
+        with A_td / b the affine forms' gradients / residues at zero (an
+        exact discrete identity: every gradient of an affine form is
+        x-independent), assembled once here in float64 on the domain's
+        device from float64 geometry, and R_nonaffine the (typically
+        boundary-only) remainder that the step re-assembles per
+        iteration, also in float64.  A_td and b are stored as float64
+        tensors.  The float64 volume tables are freed afterwards unless
+        a volume form is nonaffine (then the remainder needs them).
+
+        Same validity contract as freeze_linear_tangent."""
+        self._ensure_device_maps("aff_lin", "aff_res", "nonaff_nl")
+        f64 = torch.float64
+        L = self.pattern.max_time_level
+        wp64 = self._f64_tables()
+        st = {"wp": wp64, "maps": self._device_maps, "ghost_diag": None,
+              "x_star": torch.zeros((L + 1, self.pattern.basicfield_size),
+                                    dtype=f64, device=self.device),
+              "t": float(self.t), "dt": float(self.dt),
+              "global_vars": {k: float(v)
+                              for k, v in self.global_vars.items()},
+              "user": self.user_state}
+        A_list = []
+        for td in range(L + 1):
+            st["K_params"] = self._one_hot_k_params(td, f64)
+            A_list.append(self._run_phase(st, "aff_lin")[1])
+        st["K_params"] = self._tensor(np.ones(L + 1), f64)
+        b64 = self._run_phase(st, "aff_res")[0]
+        del st
+        self._refined = {"A": torch.stack(A_list), "b": b64,
+                         "wp": self._refined_tables(wp64)}
+
+    def _f64_tables(self, volume: bool = True) -> list:
+        """float64 geometry tables and fields on the domain's device."""
+        wp64 = self._geometry_state(torch.float64, volume=volume)
+        for wps, fields in zip(wp64, self._fields(torch.float64)):
+            wps["fields"] = fields
+        return wp64
+
+    def _refined_tables(self, wp64: Optional[list] = None) -> list:
+        """The float64 tables the refined step's nonaffine remainder
+        reads.  When every volume form is affine the remainder is
+        boundary-only: the float64 volume tables are dropped and the
+        (unused) volume entry points at the working-precision ones."""
+        vol_nonaff = any(
+            wp.local_assembly.assembled_weakform.affine_form_ids()
+            != {r.form_id
+                for r in wp.local_assembly.assembled_weakform.residues}
+            for wp in self.workpieces)
+        if wp64 is None:
+            wp64 = self._f64_tables(volume=vol_nonaff)
+        if vol_nonaff:
+            return wp64
+        return [{**w64, "el": wps["el"]}
+                for w64, wps in zip(wp64, self.state["wp"])]
+
+    def setup_mg(self, tune: bool = True, **mg_opts) -> None:
+        """Build the geometric-multigrid state once from the tangent at
+        the current x, for refined steps with ``precond='mg'``.
+
+        ``tune=False`` skips the preconditioned-spectrum estimate and the
+        Chebyshev enclosure scan; use it when the tangent at the current
+        x is not the one production steps around (before a converge-once
+        pass with an adaptive Krylov inner solver) and tune once at the
+        converged state instead."""
+        hier = multigrid.hierarchy_for_domain(self, **mg_opts)
+        self._mg_hier = hier    # steps must reuse the SAME hierarchy
+        ga = self.time_discretization
+        ga.update_time(self.dt or 1.0, self.pattern.max_time_level)
+        state = self._runtime_state()
+        state["K_linear"] = self._k_linear(state)
+        # the tangent in the DOMAIN dtype even when x is carried in f64
+        state["x_star"] = self.x.to(self.dtype)
+        _, K_total = self._res_k(state)
+        A = OffsetMatrix.from_values(K_total.to(self.dtype),
+                                     self.pattern.offset_layout)
+        self._mg_frozen = multigrid.mg_setup(hier, A, self._mg_mask)
+        self._mg_spectrum = self._mg_cheb = None
+        if not tune:
+            return
+        op = multigrid.MGOperator(A, self._mg_frozen, hier)
+        n = self.pattern.basicfield_size
+        self._mg_spectrum = multigrid.estimate_spectrum(op, n, self.dtype)
+        self._mg_cheb = multigrid.tune_chebyshev(op, n, self.dtype,
+                                                 self._mg_spectrum)
+
+    def make_refined_step(self, **kwargs):
+        """Exact-f64-residual Newton step at working-precision solve cost
+        (see jit_step.make_refined_step).  Call freeze_linear_tangent(),
+        freeze_refined_residual() and setup_mg() first."""
+        from .jit_step import make_refined_step
+        return make_refined_step(self, **kwargs)
 
     # ------------------------------------------------------------------
     # the hot loop (update_OneStep!, solver/04_Time_Domain.jl:59-80)

@@ -54,8 +54,9 @@ def test_no_banned_import_in_any_source():
 
 def test_slice_runs_with_jax_and_reference_blocked():
     """A fresh interpreter in which importing jax, jaxlib or metafem
-    fails imports the port and chip_smoke.py and runs the slice phase on
-    the CPU: lazy imports inside functions are caught too."""
+    fails imports the port and chip_smoke.py, runs the slice phase and
+    the flagship bench (small) on the CPU: lazy imports inside functions
+    are caught too."""
     code = (
         "import sys\n"
         "for m in ('jax', 'jaxlib', 'metafem'):\n"
@@ -66,12 +67,18 @@ def test_slice_runs_with_jax_and_reference_blocked():
         "import metafem_torch, chip_smoke\n"
         "out = chip_smoke.phase_slice(torch.device('cpu'), nel=(10, 5))\n"
         "assert out['residual'] < 1e-6, out\n"
-        "print('SLICE-OK')\n")
+        "print('SLICE-OK')\n"
+        "from metafem_torch import bench\n"
+        "from metafem_torch.benchmarks import gather_probe\n"
+        "rec = bench.run((8, 4), device='cpu', log=None)\n"
+        "assert rec['final_residual'] < 1e-6, rec['final_residual']\n"
+        "print('BENCH-OK')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=300, env=env, cwd=REPO)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "SLICE-OK" in proc.stdout
+    assert "BENCH-OK" in proc.stdout
 
 
 def test_default_device_is_cuda_and_raises_without_it(monkeypatch):

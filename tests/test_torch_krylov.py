@@ -74,10 +74,113 @@ def test_bicgstab_and_iterative_solve_match_reference(capsys):
 
 
 def test_float32_is_refused():
-    """Only the float64 Krylov path is ported: a float32 solve raises
-    instead of running an uncompensated dot."""
+    """float32 solves run through the compensated dot now
+    (test_float32_bicgstab_matches_reference); what stays refused is a
+    type the port's dots do not take: a float16 solve raises instead of
+    running an uncompensated dot."""
     _, At, b = _operators()
-    At32 = interop.offset_matrix_from_numpy(
-        At.vals.numpy().astype(np.float32), At.layout, device="cpu")
-    with pytest.raises(NotImplementedError, match="float64"):
-        krylov.bicgstab(At32, torch.as_tensor(b, dtype=torch.float32))
+    At16 = interop.offset_matrix_from_numpy(
+        At.vals.numpy().astype(np.float16), At.layout, device="cpu")
+    with pytest.raises(NotImplementedError, match="float32 or float64"):
+        krylov.bicgstab(At16, torch.as_tensor(b, dtype=torch.float16))
+
+
+def _cancelling(kind, n=1 << 16, seed=7):
+    """float32 vectors (a, b) whose dot cancels: ``halves`` pairs the
+    first half's products with nearly opposite ones in the second half
+    (cancellation across summation blocks), ``neighbours`` pairs
+    neighbouring products (within blocks).  Returns (a, b, the exact
+    dot: float32 products are exact in float64)."""
+    rng = np.random.default_rng(seed)
+    m = n // 2
+    u = rng.standard_normal(m).astype(np.float32)
+    v = rng.standard_normal(m).astype(np.float32)
+    w = (-v + 1e-3 * rng.standard_normal(m)).astype(np.float32)
+    if kind == "halves":
+        a, b = np.concatenate([u, u]), np.concatenate([v, w])
+    else:
+        a = np.stack([u, u], axis=1).reshape(-1)
+        b = np.stack([v, w], axis=1).reshape(-1)
+    exact = float(np.sum(a.astype(np.float64) * b.astype(np.float64)))
+    return a, b, exact
+
+
+@pytest.mark.parametrize("kind", ["halves", "neighbours"])
+def test_float32_dot_is_compensated(kind):
+    """The compensated float32 dot on cancelling vectors: its products
+    are error-free (p + err == a*b exactly: no FMA contraction), and it
+    lands within one float32 ulp of the exact (float64) dot, where a
+    plain float32 sum is off by more than 100 ulp.  The reference's _dot
+    (float32 block sums) is within its own summation error of exact;
+    the port stays within that error plus one ulp of it."""
+    a, b, exact = _cancelling(kind)
+    at, bt = torch.tensor(a), torch.tensor(b)
+    p, err = krylov._two_prod(at, bt)
+    assert np.array_equal(p.double().numpy() + err.double().numpy(),
+                          a.astype(np.float64) * b.astype(np.float64))
+    ulp = float(np.spacing(np.float32(abs(exact))))
+    got = krylov._dot(at, bt)
+    assert got.dtype == torch.float32
+    assert abs(float(got) - exact) <= ulp, (float(got), exact, ulp)
+    plain = float((at * bt).sum())
+    assert abs(plain - exact) > 100 * ulp, (plain, exact)
+    ref = float(ref_krylov._dot(jnp.asarray(a), jnp.asarray(b)))
+    assert abs(float(got) - ref) <= abs(ref - exact) + ulp, \
+        (float(got), ref, exact)
+    d64 = krylov._dot(at.double(), bt.double())
+    assert d64.dtype == torch.float64
+    # float64 dots round at ~1e-16 of sum |a_i b_i|
+    S = float(np.sum(np.abs(a.astype(np.float64) * b)))
+    np.testing.assert_allclose(float(d64), exact, rtol=0, atol=1e-14 * S)
+
+
+def test_chebyshev_matches_reference():
+    """Chebyshev on the right-Jacobi scaled tangent (spectrum inside
+    (0, 2)) with the same enclosure, trip count and right-hand side:
+    x within 1e-12 * max|x| (the same recurrence; the SpMV forms sum in
+    another order)."""
+    A, At, b = _operators()
+    As, _ = ref_pr_jacobi(A, None)
+    Ats, _ = pr_jacobi(At)
+    iv = (0.05, 1.95)
+    x_r, it_r, nn_r = ref_krylov.chebyshev(As, jnp.asarray(b), maxiter=30,
+                                           interval=iv)
+    x_p, it_p, nn_p = krylov.chebyshev(Ats, torch.as_tensor(b), maxiter=30,
+                                       interval=iv)
+    assert it_p == int(it_r) == 30
+    x_r = np.asarray(x_r)
+    np.testing.assert_allclose(x_p.numpy(), x_r, rtol=0,
+                               atol=1e-12 * np.abs(x_r).max())
+    np.testing.assert_allclose(float(nn_p), float(nn_r), rtol=1e-10)
+    # resumable: two chunks of steps are the one long solve
+    carry = krylov.chebyshev_init(Ats, torch.as_tensor(b), interval=iv)
+    carry = krylov.chebyshev_steps(Ats, carry, 12, iv)
+    carry = krylov.chebyshev_steps(Ats, carry, 18, iv)
+    assert torch.equal(carry[0], x_p)
+
+
+def test_float32_bicgstab_matches_reference():
+    """float32 BiCGStab with compensated dots on the float32 scaled
+    tangent, against the reference's float32 solve: both reach the
+    tolerance, the iteration counts agree within 25% and x within
+    1e-4 * max|x| (float32 trajectories part at the ulp level)."""
+    A, At, b = _operators()
+    As, _ = ref_pr_jacobi(A, None)
+    As32 = type(As)(As.vals.astype(jnp.float32), As.coo_rows, As.coo_cols,
+                    As.layout)
+    Ats, _ = pr_jacobi(At)
+    Ats32 = interop.offset_matrix_from_numpy(
+        Ats.vals.numpy().astype(np.float32), At.layout, device="cpu")
+    b32 = b.astype(np.float32)
+    tol = 1e-5 * float(np.linalg.norm(b32)) / np.sqrt(b32.size)
+    x_r, it_r, _ = ref_krylov.bicgstab(As32, jnp.asarray(b32), tol=tol,
+                                       maxiter=2000)
+    x_p, it_p, nn_p = krylov.bicgstab(Ats32, torch.tensor(b32), tol=tol,
+                                      maxiter=2000)
+    assert x_p.dtype == torch.float32
+    assert float(nn_p) <= tol
+    assert abs(int(it_r) - it_p) <= max(2, 0.25 * int(it_r)), \
+        (int(it_r), it_p)
+    x_r = np.asarray(x_r)
+    np.testing.assert_allclose(x_p.numpy(), x_r, rtol=0,
+                               atol=1e-4 * np.abs(x_r).max())
