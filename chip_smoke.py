@@ -22,11 +22,20 @@ from the root of the repository.  Phases, one line or more each:
    timed step (final residual below 1e-6), SpMV launches per step split
    f32/f64, launches per V-cycle, where the step's time goes, a bitwise
    repeat, and the SpMV's parity and time at this size;
-7. the ``kernels`` JSON line, then the device JSON line last.
+7. the first 3D vector-valued path: ``hyperelastic_3d`` (Neo-Hookean,
+   C=3) at nel=(160,16,16) (541,059 DOF, one dense group of 9 units and
+   117 offsets, f64): the SpMV's parity and time on its tangent in f64
+   and f32 beside the bound, the plain version and CSR ``torch.mv``, a
+   bitwise-repeated BiCGStab(4) solve, load step 1 through
+   ``update_one_step`` and load step 2 through ``update_one_step_jit``
+   (residual below 1e-5, d1/L within 2% of the analytic curve), peak
+   device memory;
+8. the ``kernels`` JSON line, then the device JSON line last.
 
-Each path (gather probe, README step, flagship) runs with the kernels'
-launch counts set to 0 just before it and read just after; every path
-must have launched its kernel.  Every failure raises and exits non-zero.
+Each path (gather probe, README step, flagship, each 3D load step) runs
+with the kernels' launch counts set to 0 just before it and read just
+after; every path must have launched its kernel.  Every failure raises
+and exits non-zero.
 Without CUDA, or without the ``metafem_torch`` package beside this file,
 the script exits non-zero and prints no result.  The phases are
 functions of ``device`` and ``nel`` so that tests can run the slice
@@ -35,12 +44,12 @@ phase small on the CPU.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
 import sys
 import time
-import warnings
 
 import numpy as np
 import torch
@@ -60,6 +69,10 @@ PEAK_BYTES = {"H100 SXM": 3.35e12, "H100 PCIe": 2.0e12, "H100 NVL": 3.9e12}
 PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}
 #: the bench.py flagship mesh: 1,282,401 DOF
 FLAGSHIP_NEL = (800, 400)
+#: the 3D path: hyperelastic_3d at nel=(160,16,16), 541,059 DOF
+E3D = 16
+#: BiCGStab(4) iterations of the profiled run on the 3D tangent
+PROF_ITERS = 40
 
 
 def _import_port():
@@ -211,42 +224,19 @@ def phase_kernel(device, nel=NEL, elastic_nel=ELASTIC_NEL) -> dict:
     if not rel32 <= 1e-5:
         raise AssertionError(f"f32 kernel disagrees: {rel32}")
 
+    t = _spmv_numbers(A, x, device)
     (grp,) = A.layout.pallas_groups
-    G, n_off, C, n_cp = len(grp.units), grp.n_off, grp.n_vars, grp.n_cp
-    xw = x.view(C, n_cp)
-    out = torch.empty_like(xw)
-    slab = A.vals[grp.base:grp.base + G * n_off * n_cp].view(G, n_off, n_cp)
-    kernel_ms = _time_ms(lambda: offset_spmv.group_mv(A.vals, xw, grp,
-                                                      out=out))
-    plain_ms = _time_ms(lambda: offset_spmv.group_mv_plain(slab, xw, grp,
-                                                           out))
-    csr = A.to_scipy()
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", UserWarning)    # "beta state"
-        A_csr = torch.sparse_csr_tensor(
-            torch.as_tensor(csr.indptr, dtype=torch.int64),
-            torch.as_tensor(csr.indices, dtype=torch.int64),
-            torch.as_tensor(csr.data), size=csr.shape,
-            check_invariants=True).to(device)
-    y_lib = torch.mv(A_csr, x)
-    y_ker = A.mv(x)
-    lib_err = float((y_lib - y_ker).abs().max() / y_ker.abs().max())
-    if not lib_err <= 1e-12:
-        raise AssertionError(f"CSR yardstick disagrees: {lib_err}")
-    library_ms = _time_ms(lambda: torch.mv(A_csr, x))
-    n_bytes = (G * n_off + 2 * C) * n_cp * A.vals.element_size()
-    n_flops = 2 * G * n_off * n_cp
-    t_bytes = n_bytes / _peak_bytes(torch.cuda.get_device_name(device)) * 1e3
-    t_ops = n_flops / PEAK_FLOPS["float64"] * 1e3
-    bound_ms = max(t_bytes, t_ops)
-    print(f"[kernel] offset_spmv thermal {nel} f64 (G={G}, n_off={n_off}, "
-          f"C={C}, n_cp={n_cp}): kernel {kernel_ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, CSR torch.mv {library_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({n_bytes / 1e6:.1f} MB), "
+    print(f"[kernel] offset_spmv thermal {nel} f64 (G={len(grp.units)}, "
+          f"n_off={grp.n_off}, C={grp.n_vars}, n_cp={grp.n_cp}): kernel "
+          f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, CSR torch.mv "
+          f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+          f"({t['nnz']} structural entries; the whole storage "
+          f"{t['storage_bound_ms']:.4f} ms), "
           f"{time.perf_counter() - t0:.1f} s")
-    return {"kernel_ms": kernel_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+    return {"kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
+            "library_ms": t["library_ms"], "bound_ms": t["bound_ms"],
+            "storage_bound_ms": t["storage_bound_ms"],
+            "bound_by": t["bound_by"],
             "max_abs_err": abs64, "max_rel_err_f64": max(rel64, rel_e),
             "max_rel_err_f32": rel32}
 
@@ -346,14 +336,18 @@ def phase_gather(device) -> dict:
             "shape": (first["n_win"], first["n_idx"])}
 
 
-def _spmv_at_size(A, rng, device, label) -> dict:
-    """The SpMV kernel on the operator A (its own float type) against
-    the plain version and a CSR library product, with its bound."""
+def _spmv_numbers(A, x, device, plain_reps: int = 25) -> dict:
+    """The kernel on A's one dense group at x, timed beside its plain
+    version and CSR ``torch.mv`` (the library product, built on the card
+    from the structural entries and checked against the kernel), with
+    two bounds.  ``bound_ms`` counts what the product needs: the values
+    of the structural entries (``OffsetMatrix.structural_mask``), x read
+    once and y written once, two operations per entry.
+    ``storage_bound_ms`` counts what the block-offset storage makes the
+    kernel stream: all (G*n_off + 2C)*n_cp values, stored zeros
+    included."""
     from metafem_torch.linsolve import offset_spmv
     dtype = A.vals.dtype
-    x = torch.as_tensor(rng.standard_normal(A.n), dtype=dtype,
-                        device=device)
-    rel, err = _parity(A, x, dtype)
     (grp,) = A.layout.pallas_groups
     G, n_off, C, n_cp = len(grp.units), grp.n_off, grp.n_vars, grp.n_cp
     xw = x.view(C, n_cp)
@@ -362,34 +356,52 @@ def _spmv_at_size(A, rng, device, label) -> dict:
     kernel_ms = _time_ms(lambda: offset_spmv.group_mv(A.vals, xw, grp,
                                                       out=out))
     plain_ms = _time_ms(lambda: offset_spmv.group_mv_plain(slab, xw, grp,
-                                                           out), reps=10)
-    csr = A.to_scipy()
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", UserWarning)    # "beta state"
-        A_csr = torch.sparse_csr_tensor(
-            torch.as_tensor(csr.indptr, dtype=torch.int64),
-            torch.as_tensor(csr.indices, dtype=torch.int64),
-            torch.as_tensor(csr.data, dtype=dtype), size=csr.shape,
-            check_invariants=True).to(device)
-    del csr
+                                                           out),
+                        reps=plain_reps)
+    A_csr = A.to_csr()
+    nnz = A_csr.values().numel()
+    y = A.mv(x)
+    lib_err = float((torch.mv(A_csr, x) - y).abs().max() / y.abs().max())
+    if not lib_err <= (1e-12 if dtype == torch.float64 else 1e-5):
+        raise AssertionError(f"CSR yardstick disagrees: {lib_err}")
+    del y
     library_ms = _time_ms(lambda: torch.mv(A_csr, x))
     del A_csr
-    size = A.vals.element_size()
-    n_bytes = (G * n_off + 2 * C) * n_cp * size
-    n_flops = 2 * G * n_off * n_cp
-    t_bytes = n_bytes / _peak_bytes(torch.cuda.get_device_name(device)) * 1e3
-    t_ops = n_flops / PEAK_FLOPS[str(dtype).split(".")[1]] * 1e3
-    bound_ms = max(t_bytes, t_ops)
-    print(f"[flagship] offset_spmv {label} {dtype} (G={G}, n_off={n_off}, "
-          f"C={C}, n_cp={n_cp}): parity max|y-y_plain|/max|y| {rel:.3e} "
-          f"(abs {err:.3e}); kernel {kernel_ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, CSR torch.mv {library_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({n_bytes / 1e6:.1f} MB, "
-          f"{100 * bound_ms / kernel_ms:.0f}% of the memory roofline)")
-    return {"rel": rel, "max_abs_err": err, "ms": kernel_ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    rate = _peak_bytes(torch.cuda.get_device_name(device))
+    peak = PEAK_FLOPS[str(dtype).split(".")[1]]
+
+    def bound(n_vals):
+        t_bytes = (n_vals + 2 * C * n_cp) * A.vals.element_size() / rate
+        t_ops = 2 * n_vals / peak
+        return 1e3 * max(t_bytes, t_ops), (
+            "bytes" if t_bytes >= t_ops else "operations")
+    bound_ms, bound_by = bound(nnz)
+    storage_bound_ms, _ = bound(G * n_off * n_cp)
+    return {"ms": kernel_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "storage_bound_ms": storage_bound_ms,
+            "nnz": nnz, "stored": G * n_off * n_cp}
+
+
+def _spmv_at_size(A, rng, device, label, tag="flagship") -> dict:
+    """The SpMV kernel on the operator A (its own float type): parity
+    against the plain version, then ``_spmv_numbers``."""
+    dtype = A.vals.dtype
+    x = torch.as_tensor(rng.standard_normal(A.n), dtype=dtype,
+                        device=device)
+    rel, err = _parity(A, x, dtype)
+    (grp,) = A.layout.pallas_groups
+    t = _spmv_numbers(A, x, device, plain_reps=10)
+    print(f"[{tag}] offset_spmv {label} {dtype} (G={len(grp.units)}, "
+          f"n_off={grp.n_off}, C={grp.n_vars}, n_cp={grp.n_cp}): parity "
+          f"max|y-y_plain|/max|y| {rel:.3e} (abs {err:.3e}); kernel "
+          f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, CSR torch.mv "
+          f"{t['library_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms from "
+          f"{t['nnz']} structural entries "
+          f"({100 * t['bound_ms'] / t['ms']:.0f}% of it), "
+          f"{t['storage_bound_ms']:.4f} ms from all {t['stored']} stored "
+          f"({100 * t['storage_bound_ms'] / t['ms']:.0f}%)")
+    return {"rel": rel, "max_abs_err": err, **t}
 
 
 def _kernel_profile(fn, device) -> tuple:
@@ -552,6 +564,184 @@ def phase_flagship(device, nel=FLAGSHIP_NEL) -> dict:
             "spmv32": spmv32, "spmv64": spmv64}
 
 
+def phase_3d(device, e_number=E3D) -> dict:
+    """The Neo-Hookean bar of ``metafem_torch.examples.hyperelastic_3d``
+    at nel=(10e, e, e) in float64, the example's own configuration
+    (order-2 serendipity, itg_order 5, right-Jacobi BiCGStab(4)): the
+    SpMV kernel and a bitwise-repeated BiCGStab(4) solve on the first
+    Newton tangent, then load step 1 (4e5) through ``update_one_step``
+    and load step 2 (8e5) through ``update_one_step_jit``, each below
+    the residual bar and within 2% of the analytic uniaxial curve."""
+    from metafem_torch.examples import hyperelastic_3d as he
+    from metafem_torch.linsolve import krylov, offset_spmv
+    from metafem_torch.linsolve.block_offset import OffsetMatrix
+    from metafem_torch.linsolve.precond import pr_jacobi
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    t_all = time.perf_counter()
+    gc.collect()                      # the earlier phases' domains
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    dom, wp, _ = he.build(e_number=e_number, device=device)
+    sync()
+    setup_s = time.perf_counter() - t0
+    lo = dom.pattern.offset_layout
+    (grp,) = lo.pallas_groups
+    G, n_off, C, n_cp = len(grp.units), grp.n_off, grp.n_vars, grp.n_cp
+    mesh = dom.workpieces[wp].mesh
+    dof = C * int(mesh.is_occupied.sum())
+    mu, lam = 1e6, 1e6
+    he.set_material(dom, mu, lam)
+    print(f"[3d] hyperelastic_3d e_number={e_number} nel="
+          f"{(10 * e_number, e_number, e_number)} lattice "
+          f"{mesh.lattice_shape}: n_cp {n_cp}, DOF {dof}, solve vector "
+          f"{lo.n}, G={G}, n_off={n_off}, C={C}, COO tail {lo.n_coo}, "
+          f"storage {lo.n_storage} values = {lo.n_storage * 8 / 1e9:.3f} GB "
+          f"per float64 tangent; setup {setup_s:.2f} s")
+    if lo.n_coo or (G, n_off, C) != (9, 117, 3):
+        raise AssertionError(f"unexpected 3D layout: {lo.n_coo}, {G}, "
+                             f"{n_off}, {C}")
+
+    # the first Newton tangent of load step 1 (x at rest, 4e5 applied):
+    # the kernel on it in f64 and f32, and one BiCGStab(4) solve twice
+    sigma1, sigma2 = 4e5, 8e5
+    dom.set_field(wp, "Pl", np.full(mesh.n_cp, sigma1))
+    dom.refresh_fields()
+    A, residue = dom.assemble_tangent()
+    rng = np.random.default_rng(20261017)
+    spmv64 = _spmv_at_size(A, rng, device, "tangent", tag="3d")
+    A32 = OffsetMatrix.from_values(A.vals.float(), lo)
+    spmv32 = _spmv_at_size(A32, rng, device, "tangent", tag="3d")
+    del A32
+    if not spmv64["rel"] <= 1e-14:
+        raise AssertionError(f"f64 kernel disagrees: {spmv64['rel']}")
+    if not spmv32["rel"] <= 1e-6:
+        raise AssertionError(f"f32 kernel disagrees: {spmv32['rel']}")
+    # the example's own solve (right-Jacobi BiCGStab(4) passes to the
+    # example's tolerance) on this tangent, twice from one state
+    n_log = len(dom.solve_log)
+    xs = []
+    for _ in range(2):
+        t = time.perf_counter()
+        xs.append(dom.linear_solver(A, residue))
+        sync()
+    rep_log = dom.solve_log[n_log:]
+    del dom.solve_log[n_log:]
+    if not torch.equal(xs[0], xs[1]):
+        raise AssertionError("two solves of one tangent differ")
+    print(f"[3d] the example's solve of the first Newton tangent, twice: "
+          f"passes (iterations, true residual) "
+          f"{[(it, float(f'{r:.3e}')) for it, r in rep_log[:len(rep_log) // 2]]}"
+          f", x bitwise equal ({time.perf_counter() - t:.2f} s each)")
+    del xs
+    As, _ = pr_jacobi(A)
+    del A
+    profile = {}
+    if device.type == "cuda":
+        # where a BiCGStab(4) cycle's time goes: PROF_ITERS iterations
+        # (tol 0, so all of them run) under the profiler and timed alone
+        def cycles():
+            return krylov.bicgstabl(As, residue, tol=0.0,
+                                    maxiter=PROF_ITERS, s=4)
+        n_launch, kernels = _kernel_profile(cycles, device)
+        sync()
+        t = time.perf_counter()
+        cycles()
+        sync()
+        wall_ms = (time.perf_counter() - t) * 1e3
+        n_cyc = PROF_ITERS // 4
+        busy = sum(kernels.values())
+        spmv = sum(v for k, v in kernels.items() if "offset_spmv" in k)
+        profile = {"wall_ms_per_cycle": wall_ms / n_cyc,
+                   "busy_ms_per_cycle": busy / n_cyc,
+                   "spmv_ms_per_cycle": spmv / n_cyc,
+                   "launches_per_cycle": (n_launch or 0) / n_cyc}
+        print(f"[3d] BiCGStab(4) cycle ({n_cyc} cycles, torch.profiler "
+              f"and host clock): {wall_ms / n_cyc:.3f} ms wall, device "
+              f"busy {busy / n_cyc:.3f} ms (idle share "
+              f"{1 - busy / wall_ms:.1%}), of it the SpMV kernel "
+              f"{spmv / n_cyc:.3f} ms; "
+              f"{(n_launch or 0) / n_cyc:.1f} kernel launches per cycle")
+    del As, residue
+
+    # load step 1: update_one_step, assembly and solves timed apart
+    parts = {"assembly": 0.0, "solve": 0.0}
+
+    def timed(fn, key):
+        def call(*args):
+            sync()
+            t = time.perf_counter()
+            out = fn(*args)
+            sync()
+            parts[key] += time.perf_counter() - t
+            return out
+        return call
+    k_lin, res_k, solver = dom._k_linear, dom._res_k, dom.linear_solver
+    dom._k_linear = timed(k_lin, "assembly")
+    dom._res_k = timed(res_k, "assembly")
+    dom.linear_solver = timed(solver, "solve")
+    n_log = len(dom.solve_log)
+    offset_spmv.reset_launches()
+    t = time.perf_counter()
+    res1, d1 = he.load_step(
+        dom, wp, sigma1, lambda: dom.update_one_step(max_iter=7,
+                                                     verbose=True))
+    sync()
+    step1_s = time.perf_counter() - t
+    launches1 = offset_spmv.group_mv.launches
+    dom._k_linear, dom._res_k, dom.linear_solver = k_lin, res_k, solver
+    log1 = dom.solve_log[n_log:]
+    it1 = sum(it for it, _ in log1)
+    ana1 = he.analytic_uniaxial_nh(sigma1, mu, lam)
+    err1 = abs(d1 - ana1) / abs(ana1)
+    print(f"[3d] load step 1 (P={sigma1:g}, update_one_step): final "
+          f"residual {res1:.3e}, d1/L {d1:.6f} vs analytic {ana1:.6f} "
+          f"(rel err {err1:.2e}); solver passes (iterations, true "
+          f"residual) {[(it, float(f'{r:.3e}')) for it, r in log1]}; "
+          f"{step1_s:.2f} s (assembly {parts['assembly']:.2f} s, solves "
+          f"{parts['solve']:.2f} s); offset_spmv launches {launches1} "
+          f"= {launches1 / max(it1 / 4, 1):.2f} per BiCGStab(4) cycle")
+    if not (res1 < 1e-5 and err1 < 0.02):
+        raise AssertionError(f"load step 1: residual {res1}, error {err1}")
+    if device.type == "cuda" and launches1 <= 0:
+        raise AssertionError("load step 1 launched no SpMV kernel")
+
+    # load step 2: update_one_step_jit, right-Jacobi BiCGStab(4)
+    n_log = len(dom.solve_log)
+    offset_spmv.reset_launches()
+    t = time.perf_counter()
+    res2, d2 = he.load_step(
+        dom, wp, sigma2, lambda: dom.update_one_step_jit(
+            max_iter=7, sv_func=krylov.bicgstabl, s=4, precond="jacobi"))
+    sync()
+    step2_s = time.perf_counter() - t
+    launches2 = offset_spmv.group_mv.launches
+    log2 = dom.solve_log[n_log:]
+    ana2 = he.analytic_uniaxial_nh(sigma2, mu, lam)
+    err2 = abs(d2 - ana2) / abs(ana2)
+    print(f"[3d] load step 2 (P={sigma2:g}, update_one_step_jit): final "
+          f"residual {res2:.3e}, d1/L {d2:.6f} vs analytic {ana2:.6f} "
+          f"(rel err {err2:.2e}); solver passes {[(it, float(f'{r:.3e}')) for it, r in log2]}; "
+          f"{step2_s:.2f} s; offset_spmv launches {launches2}")
+    if not (res2 < 1e-5 and err2 < 0.02):
+        raise AssertionError(f"load step 2: residual {res2}, error {err2}")
+    if device.type == "cuda" and launches2 <= 0:
+        raise AssertionError("load step 2 launched no SpMV kernel")
+    peak = (torch.cuda.max_memory_allocated(device)
+            if device.type == "cuda" else 0)
+    phase_s = time.perf_counter() - t_all
+    print(f"[3d] peak device memory {peak / 2 ** 30:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated); phase {phase_s:.1f} s")
+    return {"n_cp": n_cp, "dof": dof, "G": G, "n_off": n_off, "C": C,
+            "launches": launches1 + launches2, "step1_s": step1_s,
+            "step2_s": step2_s, "peak_bytes": peak,
+            "spmv64": spmv64, "spmv32": spmv32, "profile": profile}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: CUDA is not available")
@@ -570,6 +760,7 @@ def main() -> None:
     gat = run("gather", phase_gather)
     sl = run("slice", phase_slice)
     flag = run("flagship", phase_flagship)
+    p3d = run("3d", phase_3d)
     print("[time] " + ", ".join(f"{k} {v:.2f} s" for k, v in times.items())
           + f", total {time.perf_counter() - t_start:.2f} s on {env['smi']}")
     s32 = flag["spmv32"]
@@ -584,17 +775,35 @@ def main() -> None:
         "ms": s32["ms"], "plain_ms": s32["plain_ms"],
         "bound_ms": s32["bound_ms"], "bound_by": s32["bound_by"],
         "library_ms": s32["library_ms"],
+        # bound_ms counts the structural entries; storage_bound_ms all
+        # the stored values, zeros included (see _spmv_numbers)
+        "storage_bound_ms": s32["storage_bound_ms"],
         "launches_by_type": flag["path_launches"],
         "launches_per_step": flag["per_step"],
         "f64_flagship": {k: flag["spmv64"][k] for k in
-                         ("ms", "plain_ms", "bound_ms", "library_ms",
-                          "max_abs_err")},
+                         ("ms", "plain_ms", "bound_ms", "storage_bound_ms",
+                          "library_ms", "max_abs_err")},
         "readme_step_launches": sl["launches"],
         "readme_f64": {"ms": kern["kernel_ms"], "plain_ms": kern["plain_ms"],
                        "bound_ms": kern["bound_ms"],
+                       "storage_bound_ms": kern["storage_bound_ms"],
                        "library_ms": kern["library_ms"]},
-        "max_rel_err_f64": max(kern["max_rel_err_f64"], flag["spmv64"]["rel"]),
-        "max_rel_err_f32": max(kern["max_rel_err_f32"], s32["rel"])}, {
+        "hyperelastic_3d": {
+            **{k: p3d["spmv64"][k] for k in
+               ("ms", "plain_ms", "bound_ms", "storage_bound_ms",
+                "library_ms", "nnz", "stored")},
+            "max_rel_err_f64": p3d["spmv64"]["rel"],
+            "max_rel_err_f32": p3d["spmv32"]["rel"],
+            "launches": p3d["launches"],
+            "G": p3d["G"], "n_off": p3d["n_off"], "C": p3d["C"],
+            "n_cp": p3d["n_cp"], "dof": p3d["dof"],
+            "f32": {k: p3d["spmv32"][k] for k in
+                    ("ms", "plain_ms", "bound_ms", "storage_bound_ms",
+                     "library_ms")}},
+        "max_rel_err_f64": max(kern["max_rel_err_f64"], flag["spmv64"]["rel"],
+                               p3d["spmv64"]["rel"]),
+        "max_rel_err_f32": max(kern["max_rel_err_f32"], s32["rel"],
+                               p3d["spmv32"]["rel"])}, {
         "name": "gather_probe", "route": "cuda",
         "source": "metafem_torch/csrc/gather_probe.cu",
         "replaces": "benchmarks/pallas_gather_probe.py:25",

@@ -16,6 +16,7 @@ import torch
 from .config import resolve_device
 from .linsolve.block_offset import OffsetLayout, OffsetMatrix, PallasGroup
 from .linsolve.multigrid import MGHierarchy, hierarchy_for_domain
+from .linsolve.spmv import SparseMatrix
 
 
 def _as_layout(layout) -> OffsetLayout:
@@ -43,6 +44,25 @@ def offset_matrix_from_numpy(vals: np.ndarray, layout,
         raise ValueError(f"vals {vals.shape} != ({lo.n_storage},)")
     return OffsetMatrix.from_values(
         torch.tensor(vals, device=resolve_device(device)), lo)
+
+
+def sparse_matrix_from_numpy(vals: np.ndarray, rows: np.ndarray,
+                             cols: np.ndarray, n: int,
+                             device=None) -> SparseMatrix:
+    """A SparseMatrix of n x n holding ``vals`` at (``rows``, ``cols``),
+    given in CSR order (rows sorted), on ``device`` (CUDA unless the
+    caller asks for the CPU); the indices are stored as int64."""
+    vals, rows, cols = (np.asarray(a) for a in (vals, rows, cols))
+    if not vals.shape == rows.shape == cols.shape or vals.ndim != 1:
+        raise ValueError(f"vals {vals.shape}, rows {rows.shape} and cols "
+                         f"{cols.shape} must be equal 1-D shapes")
+    if rows.size and np.any(np.diff(rows) < 0):
+        raise ValueError("rows must be sorted (CSR order)")
+    dev = resolve_device(device)
+    return SparseMatrix(torch.tensor(vals, device=dev),
+                        torch.tensor(rows.astype(np.int64), device=dev),
+                        torch.tensor(cols.astype(np.int64), device=dev),
+                        int(n))
 
 
 def load_reference_state(dom, x: Optional[np.ndarray] = None,

@@ -275,30 +275,29 @@ def build_offset_layout(wp_metas, nnz: int,
                         blk_b=use_blk)
 
 
-def sorted_segment_plan(seg: np.ndarray):
-    """Host plan of a deterministic segment sum over the static segment
-    ids ``seg``: (order, lengths, unique ids), with ``order`` the stable
-    sort of ``seg``."""
+def sorted_segment_plan(seg: np.ndarray, device=None):
+    """Plan of a deterministic segment sum over the static segment ids
+    ``seg``: (order, lengths, unique ids), with ``order`` the stable sort
+    of ``seg``, computed on the host once and kept as int64 tensors on
+    ``device``, so that a sum launches kernels and copies nothing."""
     seg = np.asarray(seg, np.int64)
     order = np.argsort(seg, kind="stable")
     uniq, lengths = np.unique(seg[order], return_counts=True)
-    return order, lengths, uniq
+    return tuple(torch.as_tensor(a, dtype=torch.int64, device=device)
+                 for a in (order, lengths, uniq))
 
 
 def sorted_segment_sum(data: torch.Tensor, plan, num: int) -> torch.Tensor:
     """out[s] = sum of data[i] over seg[i] == s, in the fixed order of the
-    host plan (sorted_segment_plan): a sorted segmented reduction and a
-    write of each segment's sum to its own slot.  No atomics, so the
-    result repeats bitwise on CUDA, where ``index_add_`` would not."""
+    plan (sorted_segment_plan, on data's device): a sorted segmented
+    reduction and a write of each segment's sum to its own slot.  No
+    atomics, so the result repeats bitwise on CUDA, where ``index_add_``
+    would not."""
     order, lengths, uniq = plan
-    dev = data.device
-    out = torch.zeros(num, dtype=data.dtype, device=dev)
+    out = torch.zeros(num, dtype=data.dtype, device=data.device)
     if len(uniq) == 0:
         return out
-    vals = data[torch.as_tensor(order, device=dev)]
-    sums = torch.segment_reduce(
-        vals, "sum", lengths=torch.as_tensor(lengths, device=dev))
-    out[torch.as_tensor(uniq, device=dev)] = sums
+    out[uniq] = torch.segment_reduce(data[order], "sum", lengths=lengths)
     return out
 
 
@@ -329,7 +328,19 @@ class OffsetMatrix:
         if self.layout.blk_b:
             raise NotImplementedError(
                 "block-offset matrices with a BSR tail (blk_b > 0) are not "
-                "ported yet")
+                "ported yet (ROADMAP.md section 1, item 5)")
+
+    def _tail_plan(self, by: str):
+        """The COO tail's segment-sum plan over its rows or its columns,
+        built once per layout and device."""
+        lo = self.layout
+        plans = lo.__dict__.setdefault("_tail_plans", {})
+        key = (by, str(self.vals.device))
+        if key not in plans:
+            plans[key] = sorted_segment_plan(
+                lo.coo_rows if by == "rows" else lo.coo_cols,
+                self.vals.device)
+        return plans[key]
 
     def mv(self, x: torch.Tensor) -> torch.Tensor:
         """y = A x: one offset_spmv.group_mv per dense group (the
@@ -346,15 +357,44 @@ class OffsetMatrix:
             offset_spmv.group_mv(self.vals, x[sl].view(grp.n_vars, grp.n_cp),
                                  grp, out=y[sl].view(grp.n_vars, grp.n_cp))
         if lo.n_coo:
-            coo_vals = self.vals[lo.n_dense:]
-            plan = getattr(lo, "_coo_plan", None)
-            if plan is None:
-                plan = lo._coo_plan = sorted_segment_plan(lo.coo_rows)
-            y = y + sorted_segment_sum(coo_vals * x[self.coo_cols], plan,
-                                       lo.n)
+            y = y + sorted_segment_sum(
+                self.vals[lo.n_dense:] * x[self.coo_cols],
+                self._tail_plan("rows"), lo.n)
         return y
 
-    def diag(self) -> torch.Tensor:
+    def tmv(self, x: torch.Tensor) -> torch.Tensor:
+        """y = A.T x: per dense group and offset d_k, the products
+        vals[g, k, r] * x[pd_g, r] land at y[pb_g, r + d_k] (shifted
+        slice adds in unit order, no atomics); the COO tail is a sorted
+        segment sum over the stable column order."""
+        lo = self.layout
+        self._check_tail()
+        y = torch.zeros(lo.n, dtype=x.dtype, device=x.device)
+        for grp in lo.pallas_groups:
+            C, n_cp, n_off = grp.n_vars, grp.n_cp, grp.n_off
+            G = len(grp.units)
+            sl = slice(grp.dof_offset, grp.dof_offset + C * n_cp)
+            xw = x[sl].view(C, n_cp)
+            yw = y[sl].view(C, n_cp)
+            slab = self.vals[grp.base:grp.base + G * n_off * n_cp].view(
+                G, n_off, n_cp)
+            for g, (pd, pb) in enumerate(grp.units):
+                prod = slab[g] * xw[pd]                 # [n_off, n_cp]
+                for k, d in enumerate(grp.offsets):
+                    if d >= 0:
+                        yw[pb, d:] += prod[k, :n_cp - d]
+                    else:
+                        yw[pb, :n_cp + d] += prod[k, -d:]
+        if lo.n_coo:
+            y = y + sorted_segment_sum(
+                self.vals[lo.n_dense:] * x[self.coo_rows],
+                self._tail_plan("cols"), lo.n)
+        return y
+
+    def diag(self, diag_pos=None) -> torch.Tensor:
+        """The diagonal (``diag_pos`` is accepted for the signature of
+        the reference's solvers: block-offset storage knows its diagonal
+        positions)."""
         lo = self.layout
         ds = torch.as_tensor(lo.diag_storage, device=self.vals.device)
         d = self.vals[ds.clamp(min=0)]
@@ -397,23 +437,67 @@ class OffsetMatrix:
             vals[lo.n_dense:] = vals[lo.n_dense:] * s[self.coo_rows]
         return OffsetMatrix(vals, self.coo_rows, self.coo_cols, lo)
 
-    def to_scipy(self):
-        import scipy.sparse as sp
+    def structural_mask(self) -> torch.Tensor:
+        """Bool mask over the storage, on vals' device, of the entries a
+        product needs: those the assembly writes (``storage_of_slot``)
+        and the diagonal.  Every other stored value is a zero that the
+        assembly never touches: an offset that a row does not couple to,
+        the rows of ghost control points (which hold only their
+        diagonal), the padding of the COO tail."""
+        lo = self.layout
+        dev = self.vals.device
+        keep = torch.zeros(lo.n_storage, dtype=torch.bool, device=dev)
+        keep[torch.as_tensor(lo.storage_of_slot, dtype=torch.int64,
+                             device=dev)] = True
+        ds = lo.diag_storage[lo.diag_storage >= 0]
+        keep[torch.as_tensor(ds, dtype=torch.int64, device=dev)] = True
+        return keep
+
+    def _triplets(self, keep=None):
+        """(rows, cols, storage positions), int64 on vals' device, of the
+        stored entries whose column lies inside their block: the dense
+        segments in storage order, then the scalar COO tail.  ``keep``
+        (a bool mask over the storage) selects a subset."""
         lo = self.layout
         self._check_tail()
-        rows, cols, vals = [], [], []
-        v = self.vals.detach().cpu().numpy()
+        dev = self.vals.device
+        rows, cols, pos = [], [], []
         for (row0, col0, n_cp, d, b) in lo.segments:
-            r = np.arange(n_cp)
-            c = r + d
-            ok = (c >= 0) & (c < n_cp)
-            rows.append(row0 + r[ok])
-            cols.append(col0 + c[ok])
-            vals.append(v[b:b + n_cp][ok])
-        rows.append(np.asarray(lo.coo_rows))
-        cols.append(np.asarray(lo.coo_cols))
-        vals.append(v[lo.n_dense:])
+            r0, r1 = max(0, -d), min(n_cp, n_cp - d)
+            r = torch.arange(r0, max(r0, r1), device=dev)
+            if keep is not None:
+                r = r[keep[b + r]]
+            rows.append(row0 + r)
+            cols.append(col0 + d + r)
+            pos.append(b + r)
+        if lo.n_coo:
+            p = torch.arange(lo.n_dense, lo.n_storage, device=dev)
+            sel = slice(None) if keep is None else keep[p]
+            rows.append(self.coo_rows[sel])
+            cols.append(self.coo_cols[sel])
+            pos.append(p[sel])
+        return torch.cat(rows), torch.cat(cols), torch.cat(pos)
+
+    def to_csr(self) -> torch.Tensor:
+        """The entries of ``structural_mask`` as a torch sparse CSR tensor
+        on vals' device: the operand of the library product that the
+        kernel is timed against (no product of the port uses it)."""
+        import warnings
+        rows, cols, pos = self._triplets(self.structural_mask())
+        order = torch.argsort(rows * self.n + cols, stable=True)
+        rows, cols, pos = rows[order], cols[order], pos[order]
+        del order
+        crow = torch.searchsorted(
+            rows, torch.arange(self.n + 1, device=rows.device))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)  # "beta state"
+            return torch.sparse_csr_tensor(crow, cols, self.vals[pos],
+                                           size=(self.n, self.n))
+
+    def to_scipy(self):
+        import scipy.sparse as sp
+        rows, cols, pos = self._triplets()
         return sp.csr_matrix(
-            (np.concatenate(vals),
-             (np.concatenate(rows), np.concatenate(cols))),
-            shape=(lo.n, lo.n))
+            (self.vals.detach()[pos].cpu().numpy(),
+             (rows.cpu().numpy(), cols.cpu().numpy())),
+            shape=(self.n, self.n))

@@ -1,18 +1,31 @@
 """Matrix-free Krylov solvers, host-driven loops over device tensors.
 
-The port of the reference's ``metafem/linsolve/krylov.py`` core: the
-shared helpers ``_dot``, ``_norm``, ``_nn``, ``_prep``, BiCGStab and the
-Chebyshev iteration.  Signature of every solver:
+The port of the reference's ``metafem/linsolve/krylov.py``: the shared
+helpers (``_dot``, ``_norm``, ``_nn``, ``_prep``, ``_modify_omega``) and
+the whole solver menu, CG, BiCGStab, BiCGStab(l) (Gram and Gram-Schmidt
+minimal-residual parts), IDR(s) (biorthogonal and original), restarted
+GMRES, LSQR, CGS, CGS2, TFQMR and the Chebyshev iteration.  Signature of
+every solver:
 
-    solver(A, b, x0=None, tol=..., maxiter=..., pl=None)
+    solver(A, b, x0=None, tol=..., maxiter=..., pl=None, ...)
         -> (x, iters, normalized_residual)
 
 with ``tol`` on the normalized norm ||r|| / sqrt(n) and ``pl`` an
 optional left-preconditioner diagonal.  The reference's
 ``lax.while_loop`` becomes a Python loop that reads ``_nn(r) > tol`` back
-once per iteration; the arithmetic runs in the reference's order, so the
-iteration counts match.  Chebyshev has a fixed trip count and reads
-nothing back inside its loop.
+once per iteration; the arithmetic runs in the reference's order and the
+iteration counts are the reference's (BiCGStab(l) counts l per cycle,
+IDR(s) s + 1, GMRES its restart length).  Vectors stay on the operator's
+device; the small dense systems (the l x l Gram solve of BiCGStab(l),
+the s x s solves of IDR(s), GMRES's Givens rotations and triangular
+solve) run on the host in float64 after one readback each.  Chebyshev has
+a fixed trip count and reads nothing back inside its loop.
+
+The reference draws the shadow spaces of IDR(s), CGS2 and TFQMR from
+``jax.random`` keys 0, 1 and 2.  Here each solver takes that array as an
+argument (``P``, ``s0``, ``jitter``), by default normal numbers from a
+CPU ``torch.Generator`` seeded 0, 1 and 2, so runs on the CPU and on the
+card start alike.
 
 float32 dots are compensated (the reference's dot2, ``_dot``): at ~1e6
 DOF plain float32 dots cancel and the Krylov recurrences break down.
@@ -24,6 +37,7 @@ import math
 
 import numpy as np
 import torch
+from scipy.linalg import solve_triangular
 
 _BLOCK = 1024
 #: Veltkamp's split constant for the 24-bit float32 mantissa (2^12 + 1)
@@ -179,3 +193,494 @@ def chebyshev_steps(A, carry, n, interval, pl=None):
         d = float(rho_k * rho_prev) * d + float(two * rho_k / delta) * r
         rho_prev = rho_k
     return x, r, d, rho_prev
+
+
+# ---------------------------------------------------------------------------
+# shared pieces of the rest of the menu
+# ---------------------------------------------------------------------------
+
+_ANGLE = math.sqrt(2.0) / 2.0
+
+
+def _full(value: float, b: torch.Tensor) -> torch.Tensor:
+    """A device scalar of b's type (a fill, no host-to-device copy)."""
+    return torch.full((), value, dtype=b.dtype, device=b.device)
+
+
+def _nonzero(v: torch.Tensor) -> torch.Tensor:
+    """v with exact zeros replaced by 1 (the reference's guarded
+    divisions)."""
+    return torch.where(v == 0, torch.ones_like(v), v)
+
+
+def _shadow(v, seed: int, shape, b: torch.Tensor) -> torch.Tensor:
+    """The random array ``v`` on b's device and type, or normal numbers
+    from a CPU generator seeded ``seed`` when ``v`` is None."""
+    if v is None:
+        gen = torch.Generator(device="cpu").manual_seed(seed)
+        return torch.randn(shape, generator=gen, dtype=b.dtype).to(b.device)
+    v = v if torch.is_tensor(v) else torch.tensor(np.asarray(v))
+    return v.to(dtype=b.dtype, device=b.device).reshape(shape)
+
+
+def _host(v: torch.Tensor) -> np.ndarray:
+    """One readback, as float64 numbers."""
+    return v.detach().cpu().numpy().astype(np.float64)
+
+
+def _dev(a: np.ndarray, b: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(a, dtype=b.dtype).to(b.device)
+
+
+def _modify_omega(t, r):
+    """Omega angle stabilization (modify_Omega, 04_IDRs.jl:1-8)."""
+    tn, rn = _norm(t), _norm(r)
+    tr = _dot(t, r)
+    rho = torch.abs(tr / _nonzero(tn * rn))
+    omega = tr / torch.where(tn == 0, torch.ones_like(tn), tn * tn)
+    return torch.where(rho < _ANGLE, omega * _ANGLE / _nonzero(rho), omega)
+
+
+# ---------------------------------------------------------------------------
+# CG (for SPD systems)
+# ---------------------------------------------------------------------------
+
+def cg(A, b, x0=None, tol=1e-8, maxiter=1000, pl=None):
+    x, r = _prep(A, b, x0, pl)
+    p = r
+    rs = _dot(r, r)
+    i = 0
+    while i < maxiter and float(_nn(r)) > tol:
+        Ap = _pl(pl, A.mv(p))
+        alpha = rs / _dot(p, Ap)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        rs_new = _dot(r, r)
+        p = r + (rs_new / rs) * p
+        rs = rs_new
+        i += 1
+    return x, i, _nn(r)
+
+
+# ---------------------------------------------------------------------------
+# BiCGStab(l) (03_BiCGstabl.jl)
+# ---------------------------------------------------------------------------
+
+def _bicg_part(A, rt, x, rs, us, rho0, alpha, pl, l):
+    """The l BiCG steps of one BiCGStab(l) cycle, in place on the lists
+    rs and us; returns (x, rho0, alpha)."""
+    for j in range(l):
+        rho1 = _dot(rt, rs[j])
+        beta = alpha * rho1 / rho0
+        rho0 = rho1
+        for k in range(j + 1):
+            us[k] = rs[k] - beta * us[k]
+        us[j + 1] = _pl(pl, A.mv(us[j]))
+        gamma = _dot(rt, us[j + 1])
+        alpha = rho0 / gamma
+        for k in range(j + 1):
+            rs[k] = rs[k] - alpha * us[k + 1]
+        rs[j + 1] = _pl(pl, A.mv(rs[j]))
+        x = x + alpha * us[0]
+    return x, rho0, alpha
+
+
+def bicgstabl(A, b, x0=None, tol=1e-8, maxiter=1000, pl=None, s: int = 2):
+    """BiCGStab(l) with l = s stages (03_BiCGstabl.jl); the
+    minimal-residual part solves the small normal equations on the Gram
+    matrix, read back once per cycle and solved on the host in
+    float64."""
+    l = s
+    x, r0 = _prep(A, b, x0, pl)
+    rt = r0
+    u0 = torch.zeros_like(b)
+    rho0 = _full(1.0, b)
+    alpha = _full(0.0, b)
+    omega = 1.0
+    i = 0
+    while i < maxiter and float(_nn(r0)) > tol:
+        rho0 = -omega * rho0
+        rs = [r0] + [None] * l
+        us = [u0] + [None] * l
+        x, rho0, alpha = _bicg_part(A, rt, x, rs, us, rho0, alpha, pl, l)
+        # MR part: minimize || rs[0] - sum_j gamma_j rs[j] || (the Gram
+        # matrix is symmetric, and so is each dot: computed once)
+        dots = {}
+        for i_ in range(1, l + 1):
+            for j_ in range(i_, l + 1):
+                dots[i_, j_] = _dot(rs[i_], rs[j_])
+        z0 = [_dot(rs[0], rs[j_]) for j_ in range(1, l + 1)]
+        host = _host(torch.stack(list(dots.values()) + z0))
+        Z = np.empty((l, l))
+        for (i_, j_), v in zip(dots, host):
+            Z[i_ - 1, j_ - 1] = Z[j_ - 1, i_ - 1] = v
+        gam = np.linalg.solve(Z, host[len(dots):])
+        omega = float(gam[l - 1])
+        u0_, r0_, x_ = us[0], rs[0], x
+        for j in range(1, l + 1):
+            g = float(gam[j - 1])
+            u0_ = u0_ - g * us[j]
+            x_ = x_ + g * rs[j - 1]
+            r0_ = r0_ - g * rs[j]
+        x, r0, u0 = x_, r0_, u0_
+        i += l
+    return x, i, _nn(r0)
+
+
+def bicgstabl_gs(A, b, x0=None, tol=1e-8, maxiter=1000, pl=None,
+                 s: int = 2):
+    """BiCGStab(l) with the minimal-residual part solved by modified
+    Gram-Schmidt orthogonalization (Sleijpen-Fokkema 1993, Alg. 3.1), the
+    reference's ``bicgstabl_GS!`` (03_BiCGstabl.jl:16): MGS works on the
+    residual vectors directly instead of the Gram matrix, whose
+    conditioning is squared.  Its scalars stay on the device."""
+    l = s
+    x, r0 = _prep(A, b, x0, pl)
+    rt = r0
+    u0 = torch.zeros_like(b)
+    rho0 = _full(1.0, b)
+    alpha = _full(0.0, b)
+    omega = _full(1.0, b)
+    i = 0
+    while i < maxiter and float(_nn(r0)) > tol:
+        rho0 = -omega * rho0
+        rs = [r0] + [None] * l
+        us = [u0] + [None] * l
+        x, rho0, alpha = _bicg_part(A, rt, x, rs, us, rho0, alpha, pl, l)
+        tau = [[None] * (l + 1) for _ in range(l + 1)]
+        sigma = [None] * (l + 1)
+        gamma_p = [None] * (l + 1)
+        for j in range(1, l + 1):
+            for i_ in range(1, j):
+                tij = _dot(rs[j], rs[i_]) / sigma[i_]
+                tau[i_][j] = tij
+                rs[j] = rs[j] - tij * rs[i_]
+            sigma[j] = _dot(rs[j], rs[j])
+            gamma_p[j] = _dot(rs[0], rs[j]) / sigma[j]
+        gam = [None] * (l + 1)
+        gam[l] = gamma_p[l]
+        omega = gam[l]
+        for j in range(l - 1, 0, -1):
+            acc = _full(0.0, b)
+            for i_ in range(j + 1, l + 1):
+                acc = acc + tau[j][i_] * gam[i_]
+            gam[j] = gamma_p[j] - acc
+        gam_pp = [None] * l
+        for j in range(1, l):
+            acc = _full(0.0, b)
+            for i_ in range(j + 1, l):
+                acc = acc + tau[j][i_] * gam[i_ + 1]
+            gam_pp[j] = gam[j + 1] + acc
+        x = x + gam[1] * rs[0]
+        rs[0] = rs[0] - gamma_p[l] * rs[l]
+        us[0] = us[0] - gam[l] * us[l]
+        for j in range(1, l):
+            us[0] = us[0] - gam[j] * us[j]
+            x = x + gam_pp[j] * rs[j]
+            rs[0] = rs[0] - gamma_p[j] * rs[j]
+        r0, u0 = rs[0], us[0]
+        i += l
+    return x, i, _nn(r0)
+
+
+# ---------------------------------------------------------------------------
+# IDR(s) (04_IDRs.jl)
+# ---------------------------------------------------------------------------
+
+def idrs(A, b, x0=None, tol=1e-8, maxiter=1000, pl=None, s: int = 4,
+         P=None):
+    """IDR(s), biorthogonal variant (04_IDRs.jl idrs!).  ``P``: the
+    [s, n] shadow space (default: normal numbers seeded 0).  The s x s
+    matrix M and the projections f = P r live on the host in float64:
+    one readback of f per cycle and of P g_k per inner step."""
+    x, r = _prep(A, b, x0, pl)
+    n = b.shape[0]
+    P = _shadow(P, 0, (s, n), b)
+    G = torch.zeros((s, n), dtype=b.dtype, device=b.device)
+    U = torch.zeros_like(G)
+    M = np.eye(s)
+    omega = _full(1.0, b)
+    i = 0
+    while i < maxiter and float(_nn(r)) > tol:
+        f = _host(P @ r)
+        for k in range(s):
+            # lower-triangular M[k:, k:] c = f[k:], zero above k
+            c = np.zeros(s)
+            c[k:] = solve_triangular(M[k:, k:], f[k:], lower=True)
+            ct = _dev(c, b)[:, None]
+            v = r - (ct * G).sum(0)
+            q = (ct * U).sum(0)
+            u_k = q + omega * v
+            g_k = _pl(pl, A.mv(u_k))
+            for i2 in range(k):      # biorthogonalize against P[:k]
+                alpha = _dot(P[i2], g_k) / float(M[i2, i2])
+                g_k = g_k - alpha * G[i2]
+                u_k = u_k - alpha * U[i2]
+            G[k] = g_k
+            U[k] = u_k
+            m_col = _host(P @ g_k)
+            M[k:, k] = m_col[k:]
+            beta = float(f[k] / M[k, k])
+            r = r - beta * g_k
+            x = x + beta * u_k
+            f[k + 1:] = f[k + 1:] - beta * m_col[k + 1:]
+        # entering G_{j+1}
+        v = r
+        t = _pl(pl, A.mv(v))
+        omega = _modify_omega(t, r)
+        x = x + omega * v
+        r = r - omega * t
+        i += s + 1
+    return x, i, _nn(r)
+
+
+def idrs_original(A, b, x0=None, tol=1e-8, maxiter=1000, pl=None,
+                  s: int = 4, P=None):
+    """IDR(s), original (non-biorthogonalized) variant: the Sonneveld &
+    van Gijzen 2008 prototype with direct s x s ``M c = f`` solves
+    against the full shadow matrix, the counterpart of the reference's
+    ``idrs_original!`` (04_IDRs.jl:97-166).  ``P`` as in ``idrs``; M
+    and f on the host in float64."""
+    x, r = _prep(A, b, x0, pl)
+    n = b.shape[0]
+    P = _shadow(P, 0, (s, n), b)
+    U = torch.zeros((s, n), dtype=b.dtype, device=b.device)
+    G = torch.zeros_like(U)
+    M = np.zeros((s, s))
+    omega = _full(1.0, b)
+    # initial space: s smoothed power steps fill U, G = A U, M = P G'
+    for k in range(s):
+        u = r
+        g = _pl(pl, A.mv(r))
+        omega = _modify_omega(g, r)
+        x = x + omega * u
+        r = r - omega * g
+        U[k] = u
+        G[k] = g
+        M[:, k] = _host(P @ g)
+    i = 0
+    while i < maxiter and float(_nn(r)) > tol:
+        # k = 0: step into G_{j+1}, refresh omega
+        c = _dev(np.linalg.solve(M, _host(P @ r)), b)
+        v = r - c @ G
+        q = c @ U
+        t = _pl(pl, A.mv(v))
+        omega = _modify_omega(t, v)
+        x = x + q + omega * v
+        r = v - omega * t
+        # k = 1..s: rebuild the s directions inside G_{j+1}
+        for k in range(s):
+            c = _dev(np.linalg.solve(M, _host(P @ r)), b)
+            v = r - c @ G
+            u_k = c @ U + omega * v
+            g_k = _pl(pl, A.mv(u_k))
+            x = x + u_k
+            r = r - g_k
+            U[k] = u_k
+            G[k] = g_k
+            M[:, k] = _host(P @ g_k)
+        i += s + 1
+    return x, i, _nn(r)
+
+
+# ---------------------------------------------------------------------------
+# restarted GMRES (05_GMRES.jl)
+# ---------------------------------------------------------------------------
+
+def _givens_solve(H: np.ndarray, beta: float, restart: int) -> np.ndarray:
+    """Least-squares y of the (restart+1) x restart Hessenberg system
+    H y = beta e1 by one Givens rotation per column (05_GMRES.jl:7-37),
+    then the upper-triangular solve, zero diagonals read as 1."""
+    R = H.copy()
+    g = np.zeros(restart + 1)
+    g[0] = beta
+    for j in range(restart):
+        a, c_ = R[j, j], R[j + 1, j]
+        denom = math.sqrt(a * a + c_ * c_)
+        cs, sn = (1.0, 0.0) if denom == 0 else (a / denom, c_ / denom)
+        row_j = cs * R[j] + sn * R[j + 1]
+        row_j1 = cs * R[j + 1] - sn * R[j]
+        R[j], R[j + 1] = row_j, row_j1
+        g[j], g[j + 1] = cs * g[j] + sn * g[j + 1], cs * g[j + 1] - sn * g[j]
+    Ru = np.triu(R[:restart, :restart])
+    d = np.diag(Ru).copy()
+    d[d == 0] = 1.0
+    Ru[np.diag_indices(restart)] = d
+    return solve_triangular(Ru, g[:restart], lower=False)
+
+
+def gmres(A, b, x0=None, tol=1e-8, maxiter=1000, pl=None, s: int = 20):
+    """Restarted GMRES(s) with classical Gram-Schmidt Arnoldi on the
+    device; the Hessenberg matrix is read back once per cycle and its
+    Givens QR and triangular solve run on the host in float64."""
+    restart = s
+    x = torch.zeros_like(b) if x0 is None else x0
+    n = b.shape[0]
+    i = 0
+    r = _pl(pl, b - A.mv(x))
+    while i < maxiter and float(_nn(r)) > tol:
+        beta = _norm(r)
+        V = torch.zeros((restart + 1, n), dtype=b.dtype, device=b.device)
+        V[0] = r / _nonzero(beta)
+        H = torch.zeros((restart + 1, restart), dtype=b.dtype,
+                        device=b.device)
+        for j in range(restart):
+            w = _pl(pl, A.mv(V[j]))
+            hcol = V[:j + 1] @ w
+            w = w - (hcol[:, None] * V[:j + 1]).sum(0)
+            hnorm = _norm(w)
+            H[:j + 1, j] = hcol
+            H[j + 1, j] = hnorm
+            V[j + 1] = w / _nonzero(hnorm)
+        host = _host(torch.cat([H.reshape(-1), beta.reshape(1)]))
+        y = _givens_solve(host[:-1].reshape(restart + 1, restart),
+                          float(host[-1]), restart)
+        x = x + _dev(y, b) @ V[:restart]
+        i += restart
+        r = _pl(pl, b - A.mv(x))
+    return x, i, _nn(r)
+
+
+# ---------------------------------------------------------------------------
+# LSQR (06_LSQR.jl): Golub-Kahan bidiagonalization, needs A^T x
+# ---------------------------------------------------------------------------
+
+def lsqr(A, b, x0=None, tol=1e-8, maxiter=1000, pl=None):
+    del pl  # LSQR runs unpreconditioned (as the reference)
+    x = torch.zeros_like(b) if x0 is None else x0
+    sqrt_n = math.sqrt(b.shape[0])
+    u = b - A.mv(x)
+    beta = _norm(u)
+    u = u / _nonzero(beta)
+    v = A.tmv(u)
+    alpha = _norm(v)
+    v = v / _nonzero(alpha)
+    w = v
+    phibar, rhobar = beta, alpha
+    i = 0
+    while i < maxiter and float(phibar) / sqrt_n > tol:
+        u = A.mv(v) - alpha * u
+        beta = _norm(u)
+        u = u / _nonzero(beta)
+        v = A.tmv(u) - beta * v
+        alpha = _norm(v)
+        v = v / _nonzero(alpha)
+        rho = torch.sqrt(rhobar ** 2 + beta ** 2)
+        c_ = rhobar / rho
+        s_ = beta / rho
+        theta = s_ * alpha
+        rhobar = -c_ * alpha
+        phi = c_ * phibar
+        phibar = s_ * phibar
+        x = x + (phi / rho) * w
+        w = v - (theta / rho) * w
+        i += 1
+    return x, i, _nn(b - A.mv(x))
+
+
+# ---------------------------------------------------------------------------
+# CGS / CGS2 (07_CGS.jl)
+# ---------------------------------------------------------------------------
+
+def cgs(A, b, x0=None, tol=1e-8, maxiter=1000, pl=None):
+    x, r = _prep(A, b, x0, pl)
+    r0 = r
+    rho = alpha = _full(1.0, b)
+    u = p = torch.zeros_like(b)
+    i = 0
+    while i < maxiter and float(_nn(r)) > tol:
+        rhobar = rho
+        rho = _dot(r, r0)
+        beta = rho / rhobar
+        s_ = r + beta * p
+        u = s_ + beta * (p + beta * u)
+        v = _pl(pl, A.mv(u))
+        alpha = rho / _dot(v, r0)
+        p = s_ - alpha * v
+        x = x + alpha * (p + s_)
+        r = _pl(pl, b - A.mv(x))
+        i += 1
+    return x, i, _nn(r)
+
+
+def cgs2(A, b, x0=None, tol=1e-8, maxiter=1000, pl=None, s0=None):
+    """CGS2 with a second, random shadow vector ``s0`` (default: normal
+    numbers seeded 1)."""
+    x, r = _prep(A, b, x0, pl)
+    r0 = r
+    s0 = _shadow(s0, 1, b.shape, b)
+    alpha = alphabar = sigma = sigmabar = _full(1.0, b)
+    u = w = s_ = torch.zeros_like(b)
+    i = 0
+    while i < maxiter and float(_nn(r)) > tol:
+        rho = _dot(r, r0)
+        beta = (1.0 / alphabar) * rho / sigma
+        v = r + beta * u
+        rhobar = _dot(r, s0)
+        betabar = (1.0 / alpha) * rhobar / sigmabar
+        t = r + betabar * s_
+        w = t + beta * (u + betabar * w)
+        cv = _pl(pl, A.mv(w))
+        sigma = _dot(cv, r0)
+        alpha = rho / sigma
+        s_ = t - alpha * cv
+        sigmabar = _dot(cv, s0)
+        alphabar = rhobar / sigmabar
+        u = v - alphabar * cv
+        x = x + alpha * v + alphabar * s_
+        r = _pl(pl, b - A.mv(x))
+        i += 1
+    return x, i, _nn(r)
+
+
+# ---------------------------------------------------------------------------
+# TFQMR (08_QMR.jl): transpose-free QMR (Freund)
+# ---------------------------------------------------------------------------
+
+def tfqmr(A, b, x0=None, tol=1e-8, maxiter=1000, pl=None, jitter=None):
+    """CGS-recurrence TFQMR (QMR smoothing of CGS, Freund 1993), the
+    variant the reference implements.  The shadow residual is
+    r + 0.1 ||r|| ``jitter`` (default: normal numbers seeded 2), which
+    avoids the exact Lanczos breakdown of r0* = r0 on symmetric
+    systems; tau is the quasi-residual bound of the stop test, and the
+    true residual is returned at exit."""
+    x, r = _prep(A, b, x0, pl)
+    r0 = r + 0.1 * _norm(r) * _shadow(jitter, 2, b.shape, b)
+    sqrt_n = math.sqrt(b.shape[0])
+    r_cgs = r
+    p = u = r
+    v = _pl(pl, A.mv(p))
+    d = torch.zeros_like(b)
+    tau = _norm(r)
+    r_norm = tau
+    rho = _dot(r, r0)
+    theta = eta = _full(0.0, b)
+    i = 0
+    while i < maxiter and float(tau) / sqrt_n > tol:
+        alpha = rho / _dot(v, r0)
+        q = u - alpha * v
+        w = u + q
+        r_cgs = r_cgs - alpha * _pl(pl, A.mv(w))
+        r_norm_old = r_norm
+        r_norm = _norm(r_cgs)
+        # two QMR-smoothed half updates
+        d = u + (theta ** 2 * eta / alpha) * d
+        theta = r_norm_old / tau
+        cf = 1.0 / torch.sqrt(1.0 + theta ** 2)
+        tau = tau * theta * cf
+        eta = cf ** 2 * alpha
+        x = x + eta * d
+        d = q + (theta ** 2 * eta / alpha) * d
+        theta = torch.sqrt(r_norm * r_norm_old) / tau
+        cf = 1.0 / torch.sqrt(1.0 + theta ** 2)
+        tau = tau * theta * cf
+        eta = cf ** 2 * alpha
+        x = x + eta * d
+        rho_new = _dot(r_cgs, r0)
+        beta = rho_new / rho
+        u = r_cgs + beta * q
+        p = u + beta * (q + beta * p)
+        v = _pl(pl, A.mv(p))
+        rho = rho_new
+        i += 1
+    return x, i, _nn(_pl(pl, b - A.mv(x)))

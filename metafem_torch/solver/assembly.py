@@ -185,7 +185,7 @@ def _phase_parts(wf: AssembleWeakform, phase: str):
     if phase in ("nonaff_res", "nl_grad"):
         raise NotImplementedError(
             f"assembly phase {phase!r} belongs to the two-float residual "
-            "mode, not ported yet (ROADMAP.md queue 1, item 9)")
+            "mode, not ported yet (ROADMAP.md section 1, item 3)")
     raise ValueError(f"unknown assembly phase {phase!r}")
 
 

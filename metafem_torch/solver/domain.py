@@ -30,9 +30,15 @@ solves:
     step = dom.make_refined_step(sv_func=krylov.chebyshev)
     x, dx, res, refines = step(dom._runtime_state(), x, t, dt)
 
-Not ported yet: the two-float residual mode, the jitted step, the
-auxiliary-space multigrid, direct solvers, integration-point evaluation,
-freeze persistence and checkpoints.
+Steps in one call and other solvers:
+
+    dom.linear_solver = dom.make_iterative_solver(
+        sv_func=krylov.bicgstabl, s=4)     # or dom.make_direct_solver()
+    dom.update_one_step_jit(max_iter=7)    # make_jitted_step's host loop
+
+Not ported yet: the two-float residual mode, the auxiliary-space
+multigrid, integration-point evaluation, freeze persistence and
+checkpoints.
 """
 
 from __future__ import annotations
@@ -48,7 +54,7 @@ from ..elements.discretization import (ClassicalDiscretization,
                                        initialize_classical_element)
 from ..linsolve import krylov, multigrid
 from ..linsolve.block_offset import OffsetMatrix
-from ..linsolve.driver import iterative_solve
+from ..linsolve.driver import iterative_solve, solver_lu
 from ..mesh.fem_mesh import WPMesh, build_wp_mesh
 from ..mesh.ref_geometry import GeoMesh
 from ..symbolics.api import SymRef, as_term
@@ -129,6 +135,7 @@ class FEM_Domain:
         self._mg_mask: Optional[torch.Tensor] = None
         self._mg_spectrum: Optional[Tuple[float, float]] = None
         self._mg_cheb = None
+        self._jit_step = None
 
     def _tensor(self, arr, dtype=None) -> torch.Tensor:
         return torch.as_tensor(np.asarray(arr), dtype=dtype or self.dtype,
@@ -244,7 +251,7 @@ class FEM_Domain:
         if self.pattern.offset_layout.blk_b:
             raise NotImplementedError(
                 "meshes whose block-offset layout needs a BSR tail are not "
-                "ported yet")
+                "ported yet (ROADMAP.md section 1, item 5)")
         self._compiled_wps = [
             CompiledWP(disc=wp.disc, la=wp.local_assembly,
                        info=self.pattern.wp_infos[i],
@@ -370,19 +377,33 @@ class FEM_Domain:
                 vec[lo.diag_storage[rows]] = 1.0
         return self._tensor(vec) if any_ghost else None
 
-    def make_iterative_solver(self, sv_func=None, **kwargs) -> Callable:
+    def make_iterative_solver(self, sv_func=None, precond=None,
+                              **kwargs) -> Callable:
         """The reference's iterative_Solve! behavior: right-Jacobi scaled
         Krylov (02_Preconditioner.jl:30-78), BiCGStab by default.  Each
-        pass's (iterations, true residual) lands in ``self.solve_log``."""
+        pass's (iterations, true residual) lands in ``self.solve_log``.
+        ``precond='auxmg'`` (auxiliary-space multigrid) is not ported
+        yet."""
         sv_func = sv_func or krylov.bicgstab
         kwargs.setdefault("maxiter", 2000)
         kwargs.setdefault("max_pass", 10)
+        if precond == "auxmg":
+            raise NotImplementedError(
+                "precond='auxmg' (auxiliary-space multigrid) is not ported "
+                "yet (ROADMAP.md section 1, item 5)")
+        if precond is not None:
+            raise ValueError(f"unknown precond {precond!r}")
 
         def solve(A, b):
-            return iterative_solve(A, b, converge_tol=self.converge_tol,
+            return iterative_solve(A, b, None, converge_tol=self.converge_tol,
                                    sv_func=sv_func, log=self.solve_log,
                                    **kwargs)
         return solve
+
+    def make_direct_solver(self) -> Callable:
+        """Sparse LU on the host (solver_lu); x comes back on the
+        domain's device."""
+        return lambda A, b: solver_lu(A, b)
 
     # ------------------------------------------------------------------
     # runtime state
@@ -585,12 +606,37 @@ class FEM_Domain:
         self._mg_cheb = multigrid.tune_chebyshev(op, n, self.dtype,
                                                  self._mg_spectrum)
 
+    def make_jitted_step(self, **kwargs):
+        """The whole Newton step in one call (see
+        jit_step.make_jitted_step; a host loop in PyTorch):
+
+            step = dom.make_jitted_step(sv_func=krylov.bicgstab)
+            x, dx, res, iters = step(dom._runtime_state(), dom.x, t, dt)
+        """
+        from .jit_step import make_jitted_step
+        return make_jitted_step(self, **kwargs)
+
     def make_refined_step(self, **kwargs):
         """Exact-f64-residual Newton step at working-precision solve cost
         (see jit_step.make_refined_step).  Call freeze_linear_tangent(),
         freeze_refined_residual() and setup_mg() first."""
         from .jit_step import make_refined_step
         return make_refined_step(self, **kwargs)
+
+    def update_one_step_jit(self, max_iter: int = 4, **kwargs) -> float:
+        """One step through make_jitted_step (built at the first call
+        with ``max_newton=max_iter`` and ``kwargs``, then reused); each
+        solver pass's (iterations, true residual) lands in
+        ``self.solve_log``."""
+        if self._jit_step is None:
+            kwargs.setdefault("log", self.solve_log)
+            self._jit_step = self.make_jitted_step(max_newton=max_iter,
+                                                   **kwargs)
+        self.t += self.dt
+        x, dx, res, _ = self._jit_step(self._runtime_state(), self.x,
+                                       self.t, self.dt)
+        self.x, self.dx = x, dx
+        return float(res)
 
     # ------------------------------------------------------------------
     # the hot loop (update_OneStep!, solver/04_Time_Domain.jl:59-80)

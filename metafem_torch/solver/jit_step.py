@@ -1,20 +1,23 @@
-"""The refined Newton step: exact float64 residuals, working-precision
-multigrid solves.
+"""Newton steps with the whole step in one call: ``make_jitted_step``
+(assembled residuals, right-Jacobi or multigrid Krylov solves) and the
+refined step ``make_refined_step`` (exact float64 residuals,
+working-precision multigrid solves).
 
-Port of ``make_refined_step`` of ``metafem/solver/jit_step.py`` in its
-``residual_mode="f64"``.  The reference stages the whole step as one
-jitted ``lax.while_loop``; here it is a host loop over device tensors
-that reads the float64 residual norm back once per refine iteration.
-The card computes float64 natively, so ``x`` is carried in float64
-between steps (the two-float carry of the reference's ``df32`` mode,
-which exists for the TPU's emulated float64, is not needed in this mode
-and is not ported).
+Port of ``metafem/solver/jit_step.py``.  The reference stages each step
+as one jitted ``lax.while_loop``; in PyTorch each is a host loop over
+device tensors that reads one residual norm back per Newton (or refine)
+iteration, and keeps the names of the reference so that a reader finds
+the counterpart.  The refined step is ported in its
+``residual_mode="f64"``: the card computes float64 natively, so ``x`` is
+carried in float64 between steps (the two-float carry of the
+reference's ``df32`` mode, which exists for the TPU's emulated float64,
+is not ported).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -23,6 +26,157 @@ from ..linsolve import krylov
 from ..linsolve.block_offset import OffsetMatrix
 from ..linsolve.precond import pr_jacobi
 from .time_domain import initialize_dx, x_star_of
+
+
+def combine_klin(state, K_params) -> torch.Tensor:
+    """sum_td K_params[td] * K_linear_td[td] (+ ghost diagonal): the
+    linear tangent from the components frozen by
+    ``freeze_linear_tangent``, one scalar-times-vector add per time
+    level."""
+    K_td = state["K_linear_td"]
+    K = float(K_params[0]) * K_td[0]
+    for td in range(1, K_td.shape[0]):
+        K = K + float(K_params[td]) * K_td[td]
+    if state.get("ghost_diag") is not None:
+        K = K + state["ghost_diag"]
+    return K
+
+
+def make_jitted_step(domain, sv_func: Callable = krylov.bicgstab,
+                     maxiter: int = 2000, max_newton: int = 4,
+                     max_pass: int = 2, precond: str = "jacobi",
+                     mg_opts: dict = None, forcing: float = 1e-2,
+                     stall_ratio: float = 0.9,
+                     static_k_linear: bool = False,
+                     reuse_mg: bool = False, rowshard_mesh=None,
+                     log: Optional[list] = None, **sv_kwargs):
+    """Build ``step(state, x, t, dt) -> (x_new, dx, res, n_newton)``.
+
+    In the reference this is one jitted dispatch; in PyTorch it is a host
+    Newton loop with the reference's exits: below ``converge_tol`` (read
+    from the domain at build time), after ``max_newton`` iterations, or
+    when the residual falls by less than ``stall_ratio``.  Every Newton
+    iteration assembles the residual and tangent and solves with
+    ``sv_func`` in ``max_pass`` restart passes, each stopping at the
+    inexact-Newton tolerance max(converge_tol, forcing * ||rhs|| /
+    sqrt(n)).
+
+    ``precond``: 'jacobi' (right diagonal scaling, the reference's
+    Pr_Jacobi!) or 'mg' (the lattice multigrid V-cycle as right
+    preconditioner, set up once per step from the predictor tangent, or
+    taken from ``domain.setup_mg()`` with ``reuse_mg``).
+    ``static_k_linear``: combine the components frozen by
+    ``domain.freeze_linear_tangent()`` instead of assembling the linear
+    tangent.  ``log``, when given, receives one (Krylov iterations, true
+    residual of the pass's system) pair per solver pass."""
+    if rowshard_mesh is not None:
+        raise NotImplementedError(
+            "rowshard_mesh (multi-device row sharding) is not ported yet "
+            "(ROADMAP.md section 1, item 6)")
+    mg_hier = None
+    if precond == "mg":
+        from ..linsolve import multigrid
+        if reuse_mg and domain._mg_hier is not None:
+            mg_hier = domain._mg_hier
+        else:
+            mg_hier = multigrid.hierarchy_for_domain(domain,
+                                                     **(mg_opts or {}))
+    elif precond != "jacobi":
+        raise ValueError(f"unknown precond {precond!r}")
+    if static_k_linear and domain._k_linear_td is None:
+        raise RuntimeError("call domain.freeze_linear_tangent() first")
+
+    pattern = domain.pattern
+    ga = domain.time_discretization
+    gamma = tuple(ga.gamma_params)
+    alpha = tuple(ga.alpha_params)
+    tol = float(domain.converge_tol)
+    L = pattern.max_time_level
+    layout = pattern.offset_layout
+    res_k, k_linear = domain._res_k, domain._k_linear
+    sqrt_n = math.sqrt(pattern.basicfield_size)
+
+    def A_of(vals) -> OffsetMatrix:
+        return OffsetMatrix.from_values(vals, layout)
+
+    def norm_n(v) -> float:
+        return float(torch.linalg.norm(v)) / sqrt_n
+
+    def passes(A, residue, solve_once):
+        """max_pass restart passes of solve_once(rr) -> (delta_i, iters)
+        with the true residual recomputed between them."""
+        delta, rr = None, residue
+        for _ in range(max_pass):
+            d_i, iters = solve_once(rr)
+            delta = d_i if delta is None else delta + d_i
+            rr = residue - A.mv(delta)
+            if log is not None:
+                log.append((int(iters), norm_n(rr)))
+        return delta
+
+    def inner_tol(rr) -> float:
+        return max(tol, forcing * norm_n(rr))
+
+    def step(state, x, t, dt):
+        dev, dtype = x.device, x.dtype
+        levels = L + 1
+        f = np.float32 if dtype == torch.float32 else np.float64
+        prod_gamma = np.asarray([np.prod(gamma[:i]) for i in range(levels)],
+                                f)
+        dt_pow = np.asarray([f(dt) ** i for i in range(levels)], f)
+        beta = f(1.0) / (prod_gamma * dt_pow)
+        K_params = np.asarray(alpha[:levels], f) * beta
+        beta_t = torch.as_tensor(beta).to(dev)
+        st = dict(state)
+        st["t"], st["dt"] = float(t), float(dt)
+        st["K_params"] = torch.as_tensor(K_params).to(dev)
+        st["x_star"] = x
+        st["K_linear"] = (combine_klin(st, K_params) if static_k_linear
+                          else k_linear(st))
+
+        def res_of(dx):
+            st2 = dict(st)
+            st2["x_star"] = x_star_of(x, dx, alpha)
+            return res_k(st2)
+
+        dx = initialize_dx(x, float(dt), gamma)
+        residue, K_total = res_of(dx)
+        res = norm_n(residue)
+        mg_state = None
+        if mg_hier is not None:
+            # set up once per step from the predictor tangent and frozen
+            # across the Newton iterations
+            mg_state = (st["mg_frozen"] if reuse_mg else multigrid.mg_setup(
+                mg_hier, A_of(K_total), st.get("mg_mask")))
+        res_prev = float(np.finfo(np.float32).max)
+        it = 0
+        while res > tol and it < max_newton and res < stall_ratio * res_prev:
+            A = A_of(K_total)
+            if mg_hier is not None:
+                op = multigrid.MGOperator(A, mg_state, mg_hier)
+
+                def solve_once(rr):
+                    y_i, iters, _ = sv_func(op, rr, tol=inner_tol(rr),
+                                            maxiter=maxiter, **sv_kwargs)
+                    return op.apply_m(y_i), iters
+                delta = passes(A, residue, solve_once)
+            else:
+                As, unscale = pr_jacobi(A)
+
+                def solve_once(rr):
+                    d_i, iters, _ = sv_func(As, rr, tol=inner_tol(rr),
+                                            maxiter=maxiter, **sv_kwargs)
+                    return d_i, iters
+                delta = unscale(passes(As, residue, solve_once))
+            dx = dx + beta_t[:, None] * (-delta)[None, :]     # update_dx!
+            # the residual and tangent at the new dx serve the stop test
+            # and the next iteration (the reference assembles them twice)
+            residue, K_total = res_of(dx)
+            res_prev, res = res, norm_n(residue)
+            it += 1
+        return x + dx, dx, res, it
+
+    return step
 
 
 def make_refined_step(domain, sv_func: Callable = krylov.bicgstab,
@@ -61,23 +215,23 @@ def make_refined_step(domain, sv_func: Callable = krylov.bicgstab,
     if residual_mode == "df32":
         raise NotImplementedError(
             "residual_mode='df32' (two-float residuals) is not ported yet "
-            "(ROADMAP.md queue 1, item 9)")
+            "(ROADMAP.md section 1, item 3)")
     if residual_mode != "f64":
         raise ValueError(f"unknown residual_mode {residual_mode!r}")
     if rowshard_mesh is not None:
         raise NotImplementedError(
             "rowshard_mesh (multi-device row sharding) is not ported yet "
-            "(ROADMAP.md queue 1, item 13)")
+            "(ROADMAP.md section 1, item 6)")
     if inner_operator == "sparse":
         raise NotImplementedError(
             "inner_operator='sparse' needs the auxiliary-space multigrid, "
-            "not ported yet (ROADMAP.md queue 1, item 11)")
+            "not ported yet (ROADMAP.md section 1, item 5)")
     if inner_operator != "exact":
         raise ValueError(f"unknown inner_operator {inner_operator!r}")
     if precond == "auxmg":
         raise NotImplementedError(
-            "precond='auxmg' is not ported yet (ROADMAP.md queue 1, "
-            "item 11)")
+            "precond='auxmg' is not ported yet (ROADMAP.md section 1, "
+            "item 5)")
     mg_hier = None
     if precond == "mg":
         from ..linsolve import multigrid
@@ -120,17 +274,6 @@ def make_refined_step(domain, sv_func: Callable = krylov.bicgstab,
         n_cheb = int(np.ceil(np.log(forcing / 2.0) / np.log(rate)))
         maxiter = int(np.clip(n_cheb, 2, maxiter))
         sv_kwargs = {**sv_kwargs, "interval": interval}
-
-    def combine_klin(state, K_params_s):
-        """sum_td K_params[td] * K_linear_td[td] (+ ghost diagonal), one
-        scalar-times-vector add per time level."""
-        K_td = state["K_linear_td"]
-        K = float(K_params_s[0]) * K_td[0]
-        for td in range(1, L + 1):
-            K = K + float(K_params_s[td]) * K_td[td]
-        if state.get("ghost_diag") is not None:
-            K = K + state["ghost_diag"]
-        return K
 
     def solve_f32(state, A, rr, tol_i):
         if mg_hier is not None:

@@ -83,7 +83,7 @@ def maps_to_device(gr: Optional[GatherReduce], device) -> Optional[dict]:
     if gr.overflow_src is not None:
         out["of_src"] = torch.as_tensor(gr.overflow_src.astype(np.int64),
                                         device=device)
-        out["of_plan"] = sorted_segment_plan(gr.overflow_dst)
+        out["of_plan"] = sorted_segment_plan(gr.overflow_dst, device)
     return out
 
 

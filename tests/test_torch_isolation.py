@@ -54,9 +54,10 @@ def test_no_banned_import_in_any_source():
 
 def test_slice_runs_with_jax_and_reference_blocked():
     """A fresh interpreter in which importing jax, jaxlib or metafem
-    fails imports the port and chip_smoke.py, runs the slice phase and
-    the flagship bench (small) on the CPU: lazy imports inside functions
-    are caught too."""
+    fails imports the port and chip_smoke.py, runs the slice phase, the
+    flagship bench (small) and a BiCGStab(4) solve on a sorted-COO matrix
+    on the CPU, with the solver menu, the jitted step and the 3D examples
+    imported: lazy imports inside functions are caught too."""
     code = (
         "import sys\n"
         "for m in ('jax', 'jaxlib', 'metafem'):\n"
@@ -72,13 +73,30 @@ def test_slice_runs_with_jax_and_reference_blocked():
         "from metafem_torch.benchmarks import gather_probe\n"
         "rec = bench.run((8, 4), device='cpu', log=None)\n"
         "assert rec['final_residual'] < 1e-6, rec['final_residual']\n"
-        "print('BENCH-OK')\n")
+        "print('BENCH-OK')\n"
+        "from metafem_torch.linsolve import driver, krylov, poly, precond\n"
+        "from metafem_torch.linsolve.spmv import SparseMatrix\n"
+        "from metafem_torch.solver import jit_step\n"
+        "from metafem_torch.examples import cantilever_3d, hyperelastic_3d\n"
+        "n = 32\n"
+        "i = torch.arange(n)\n"
+        "rows = torch.cat([i, i[1:], i[:-1]])\n"
+        "cols = torch.cat([i, i[:-1], i[1:]])\n"
+        "vals = torch.cat([torch.full((n,), 2.0, dtype=torch.float64),\n"
+        "                  torch.full((2 * n - 2,), -1.0, dtype=torch.float64)])\n"
+        "o = torch.sort(rows * n + cols).indices\n"
+        "A = SparseMatrix(vals[o], rows[o], cols[o], n)\n"
+        "b = torch.ones(n, dtype=torch.float64)\n"
+        "x, it, res = krylov.bicgstabl(A, b, tol=1e-10, maxiter=500, s=4)\n"
+        "assert float(res) < 1e-10 and it > 0, (it, float(res))\n"
+        "print('MENU-OK')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=300, env=env, cwd=REPO)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "SLICE-OK" in proc.stdout
     assert "BENCH-OK" in proc.stdout
+    assert "MENU-OK" in proc.stdout
 
 
 def test_default_device_is_cuda_and_raises_without_it(monkeypatch):

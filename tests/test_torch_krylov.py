@@ -64,7 +64,7 @@ def test_bicgstab_and_iterative_solve_match_reference(capsys):
                                           capsys.readouterr().out)]
     log = []
     y_p = iterative_solve(At, torch.as_tensor(b), converge_tol=TOL,
-                          max_pass=10, log=log)
+                          sv_func=krylov.bicgstab, max_pass=10, log=log)
     assert len(log) == len(iters_r)
     assert all(abs(a - b) <= 1 for (a, _), b in zip(log, iters_r)), \
         (log, iters_r)

@@ -42,7 +42,8 @@ from test_refined import _radiating_thermal
 torch.set_num_threads(2)
 
 
-def _port_radiating(nel=(16, 8), transient=False, dtype=torch.float64):
+def _port_radiating(nel=(16, 8), transient=False, dtype=torch.float64,
+                    nonlinear_volume=False):
     """The port's twin of test_refined._radiating_thermal."""
     L1, L2 = 0.02, 0.01
     vert, conn = mf.make_square((L1, L2), nel)
@@ -59,7 +60,12 @@ def _port_radiating(nel=(16, 8), transient=False, dtype=torch.float64):
     s = dom.external_var("s", "CONTROLPOINT_VAR")
     n = dom.sym("n")
     i = mf.index("i")
-    vol = -3.0 * Bilinear(T.d(i), T.d(i)) + Bilinear(T, s)
+    if nonlinear_volume:
+        vol = (-3.0 * Bilinear(T.d(i), T.d(i))
+               - 2.0e-3 * Bilinear(T.d(i), T * T.d(i))
+               + Bilinear(T, s))
+    else:
+        vol = -3.0 * Bilinear(T.d(i), T.d(i)) + Bilinear(T, s)
     if transient:
         vol = vol - 1.0e5 * Bilinear(T, T.dt())
     dom.assign_workpiece_weakform(wp, vol)
@@ -262,3 +268,105 @@ def test_unported_options_raise():
                {"inner_operator": "sparse"}, {"rowshard_mesh": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             dom.make_refined_step(**{"precond": "jacobi", **kw})
+
+
+# ---------------------------------------------------------------------------
+# the ported branches of the refined step that the tests above do not run:
+# a nonaffine volume (float64 volume tables kept), Jacobi inner solves
+# with restart passes, and the nonaffine tangent frozen per step
+# ---------------------------------------------------------------------------
+
+def test_refined_residual_identity_volume_nonaffine():
+    """test_refined.py's identity test on the port: with a T-dependent
+    conductivity the volume is nonaffine, the port keeps float64 volume
+    tables, and sum A_td x*[td] + b + R_nonaffine(x*) equals the direct
+    residual at a random x* (and that equals the reference's) within
+    1e-12 of its largest entry."""
+    ref = _radiating_thermal(nonlinear_volume=True)
+    dom = _port_radiating(nonlinear_volume=True)
+    dom.freeze_linear_tangent()
+    dom.freeze_refined_residual()
+    wp64 = dom._refined["wp"]
+    assert wp64[0]["el"] is not dom.state["wp"][0]["el"]
+    assert wp64[0]["el"]["weights"].dtype == torch.float64
+    rng = np.random.default_rng(1)
+    xs = np.asarray(ref.x) + rng.normal(0.0, 50.0, ref.x.shape)
+    st_r = ref._runtime_state()
+    st_r["x_star"] = jnp.asarray(xs)
+    st_r["K_linear"] = ref._k_linear(st_r)
+    r_ref, _ = ref._res_k(st_r)
+    st = dom._runtime_state()
+    st["x_star"] = torch.tensor(xs)
+    st["K_linear"] = dom._k_linear(st)
+    r_direct, _ = dom._res_k(st)
+    _close(r_direct, r_ref, 1e-12)
+    from metafem_torch.linsolve.block_offset import OffsetMatrix
+    lo = dom.pattern.offset_layout
+    r = dom._refined["b"]
+    for td in range(dom.pattern.max_time_level + 1):
+        r = r + OffsetMatrix.from_values(dom._refined["A"][td], lo).mv(
+            st["x_star"][td])
+    r = r + dom._run_phase({**st, "wp": wp64}, "nonaff_nl")[0]
+    _close(r, r_direct.numpy(), 1e-12)
+
+
+def _refined_pair(nel=(16, 8), nonlinear_volume=False, mg=True):
+    ref = _radiating_thermal(nel=nel, nonlinear_volume=nonlinear_volume)
+    dom = _port_radiating(nel=nel, nonlinear_volume=nonlinear_volume)
+    for d in (ref, dom):
+        d.freeze_linear_tangent()
+        if mg:
+            d.setup_mg()
+        d.freeze_refined_residual()
+    return ref, dom
+
+
+def _both_steps(ref, dom, x0, tol, kw_ref, kw, **common):
+    ref.converge_tol = dom.converge_tol = tol
+    x_r, _, res_r, it_r = ref.make_refined_step(**kw_ref, **common)(
+        ref._runtime_state(), jnp.asarray(x0), jnp.float64(0.0),
+        jnp.float64(1.0))
+    x_p, _, res_p, it_p = dom.make_refined_step(**kw, **common)(
+        dom._runtime_state(), torch.tensor(np.asarray(x0)), 0.0, 1.0)
+    assert float(res_r) < tol and res_p < tol, (float(res_r), res_p)
+    return np.asarray(x_r), int(it_r), x_p, it_p
+
+
+def test_refined_step_volume_nonaffine_matches_reference():
+    """The f64 refined step on the nonaffine volume, BiCGStab inner
+    solves under the multigrid preconditioner: x within 1e-10 * max|x|
+    of the reference's f64-mode step, with the same number of refines."""
+    ref, dom = _refined_pair(nonlinear_volume=True)
+    x_r, it_r, x_p, it_p = _both_steps(
+        ref, dom, ref.x, 1e-11, {"sv_func": ref_krylov.bicgstab,
+                                 "residual_mode": "f64"},
+        {"sv_func": krylov.bicgstab}, maxiter=60, max_refine=16)
+    assert it_r == it_p
+    _close(x_p, x_r, 1e-10)
+
+
+def test_refined_step_jacobi_precond_matches_reference():
+    """precond='jacobi' with max_pass=2 (restart passes with the true
+    residual recomputed), BiCGStab(2) inner solves, as
+    test_refined.py::test_refined_step_jacobi_precond."""
+    ref, dom = _refined_pair(nel=(10, 6), mg=False)
+    x_r, it_r, x_p, it_p = _both_steps(
+        ref, dom, ref.x, 1e-10, {"sv_func": ref_krylov.bicgstabl},
+        {"sv_func": krylov.bicgstabl}, s=2, maxiter=400, max_refine=12,
+        max_pass=2, precond="jacobi")
+    assert abs(it_r - it_p) <= 1, (it_r, it_p)
+    _close(x_p, x_r, 1e-10)
+
+
+def test_refined_step_static_nl_tangent_matches_reference():
+    """static_nl_tangent=True (the nonaffine tangent blocks frozen at the
+    predictor) warm-stepping from the converged x times (1 + 1e-4), as
+    test_refined.py::test_refined_step_static_nl_tangent."""
+    _, _, x_c, _, _, _, _ = _converged_pair()
+    ref, dom = _refined_pair()
+    x_r, it_r, x_p, it_p = _both_steps(
+        ref, dom, x_c * (1.0 + 1e-4), 1e-11,
+        {"sv_func": ref_krylov.bicgstab}, {"sv_func": krylov.bicgstab},
+        maxiter=60, max_refine=16, static_nl_tangent=True)
+    assert abs(it_r - it_p) <= 1, (it_r, it_p)
+    _close(x_p, x_r, 1e-10)

@@ -125,3 +125,35 @@ def test_group_mv_has_no_fallback_off_the_cpu():
     with pytest.raises(ValueError, match="cuda or cpu"):
         offset_spmv.group_mv(vals, x, grp)
     assert offset_spmv.group_mv.launches == 0
+
+
+@pytest.mark.parametrize("dense", [False, True], ids=["default", "dense"])
+def test_to_csr_matches_scipy(dense):
+    """``to_csr`` (the operand of the library product that the kernel is
+    timed against) gives scipy's product within 1e-12 * max|y|, with
+    sorted rows and columns.  It holds exactly the entries that the
+    assembly writes and the diagonal; every stored entry it leaves out
+    is a zero."""
+    A, _ = _reference_operator("elastic", dense)
+    lo = A.layout
+    At = interop.offset_matrix_from_numpy(np.asarray(A.vals), lo,
+                                          device="cpu")
+    C = At.to_csr()
+    crow, col = C.crow_indices().numpy(), C.col_indices().numpy()
+    assert crow[0] == 0 and crow[-1] == col.size and (np.diff(crow) >= 0).all()
+    row = np.repeat(np.arange(A.n), np.diff(crow))
+    assert (np.diff(row.astype(np.int64) * A.n + col) >= 0).all()
+    x = np.random.default_rng(11).standard_normal(A.n)
+    y_sp = A.to_scipy() @ x
+    np.testing.assert_allclose(torch.mv(C, torch.as_tensor(x)).numpy(),
+                               y_sp, rtol=1e-12,
+                               atol=1e-12 * np.abs(y_sp).max())
+    written = np.union1d(lo.storage_of_slot,
+                         lo.diag_storage[lo.diag_storage >= 0])
+    assert col.size == written.size
+    if dense:
+        n_stored = sum(min(n_cp, n_cp - d) - max(0, -d)
+                       for (_r, _c, n_cp, d, _b) in lo.segments)
+        assert written.size < n_stored      # the dense layout stores zeros
+    left_out = np.setdiff1d(np.arange(lo.n_storage), written)
+    assert (np.asarray(A.vals)[left_out] == 0).all()
