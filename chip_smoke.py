@@ -6,11 +6,14 @@
 from the root of the repository.  Phases, one line or more each:
 
 1. environment: torch and CUDA versions, the card's name and power limit;
-2. build: both hand-written kernels compiled with nvcc, in parallel;
-3. kernel parity: the block-offset SpMV against its plain PyTorch
-   version on the README thermal operator (f64, f32) and a C=2 elastic
-   one, with times from CUDA events beside the bound and a CSR library
-   product;
+2. build: both hand-written kernels compiled with nvcc, in parallel,
+   and ptxas's report of their registers and spills;
+3. kernel parity: the packed block-offset SpMV against its plain
+   PyTorch version and the dense formula on the README thermal operator
+   (f64, f32) and a C=2 elastic one, with times from CUDA events (back
+   to back and with L2 flushed) beside three bounds (structural entries,
+   packed bytes, whole storage), a CSR library product, the pack plan's
+   build time and the pack's cost;
 4. the gather probe (``metafem_torch.benchmarks.gather_probe``) at the
    TPU probe's two sizes: both variants (or the refused shared window),
    bitwise parity, times, M gathers/s, bound and ``torch.index_select``;
@@ -25,11 +28,12 @@ from the root of the repository.  Phases, one line or more each:
 7. the first 3D vector-valued path: ``hyperelastic_3d`` (Neo-Hookean,
    C=3) at nel=(160,16,16) (541,059 DOF, one dense group of 9 units and
    117 offsets, f64): the SpMV's parity and time on its tangent in f64
-   and f32 beside the bound, the plain version and CSR ``torch.mv``, a
-   bitwise-repeated BiCGStab(4) solve, load step 1 through
-   ``update_one_step`` and load step 2 through ``update_one_step_jit``
-   (residual below 1e-5, d1/L within 2% of the analytic curve), peak
-   device memory;
+   and f32 beside the bounds, the plain version and CSR ``torch.mv``, a
+   bitwise-repeated BiCGStab(4) solve, a profiled BiCGStab(4) cycle
+   (device busy, the SpMV's share), load step 1 through
+   ``update_one_step`` (its iterations beside the dense kernel's) and
+   load step 2 through ``update_one_step_jit`` (residual below 1e-5,
+   d1/L within 2% of the analytic curve), peak device memory;
 8. the ``kernels`` JSON line, then the device JSON line last.
 
 Each path (gather probe, README step, flagship, each 3D load step) runs
@@ -73,6 +77,15 @@ FLAGSHIP_NEL = (800, 400)
 E3D = 16
 #: BiCGStab(4) iterations of the profiled run on the 3D tangent
 PROF_ITERS = 40
+#: iterations of load step 1's three solves at E3D with the dense kernel
+#: of earlier versions (its chip runs on an H100); the packed kernel adds
+#: the same products in the same order, so it should repeat them
+DENSE_KERNEL_ITERS = (708, 696, 648)
+#: the numbers of each SpMV operator in the kernels line
+SPMV_KEYS = ("ms", "cold_ms", "plain_ms", "library_ms", "bound_ms",
+             "packed_bound_ms", "storage_bound_ms", "pack_ms", "plan_build_s",
+             "padding_share", "n_packed", "nnz", "stored",
+             "bytes_per_product", "plan_bytes", "max_abs_err")
 
 
 def _import_port():
@@ -91,11 +104,13 @@ def _peak_bytes(name: str) -> float:
     return PEAK_BYTES["H100 SXM"]
 
 
-def _time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
+def _time_ms(fn, reps: int = 25, warmup: int = 3,
+             graph: bool = False) -> float:
     """Device time of one call: the port's CUDA-event timer over
-    back-to-back calls (metafem_torch/benchmarks/timing.py)."""
+    back-to-back calls, or over replays of a CUDA graph of them
+    (metafem_torch/benchmarks/timing.py)."""
     from metafem_torch.benchmarks.timing import cuda_time_ms
-    return cuda_time_ms(fn, reps=reps, warmup=warmup)
+    return cuda_time_ms(fn, reps=reps, warmup=warmup, graph=graph)
 
 
 def phase_environment(device) -> dict:
@@ -119,13 +134,19 @@ def phase_build() -> float:
     from metafem_torch.linsolve import offset_spmv
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=2) as pool:
-        list(pool.map(buildlib.build_cuda, ("offset_spmv", "gather_probe")))
+        libs = list(pool.map(buildlib.build_cuda,
+                             ("offset_spmv", "gather_probe")))
     offset_spmv.load_library()
     gather_probe.load_library()
     sec = time.perf_counter() - t0
     flags = " ".join(buildlib.NVCC_FLAGS)
     print(f"[build] offset_spmv.cu and gather_probe.cu with nvcc {flags}: "
           f"{sec:.2f} s")
+    for lib in libs:
+        for line in buildlib.build_log(lib).splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print(f"[build] ptxas {os.path.basename(lib)}: "
+                      f"{line.strip()}")
     return sec
 
 
@@ -169,29 +190,39 @@ def elastic_domain(nel, device):
 
 
 def _parity(A, x, dtype) -> tuple:
-    """(max |kernel - plain| / max |plain|, max abs error, y) for every
-    dense group of A at x, kernel and plain version on the same inputs."""
+    """(max |kernel - plain| / max |plain|, max abs error) over every
+    dense group of A at x in ``dtype``: the packed kernel against its
+    plain version on the same packed values and against the dense
+    formula (``group_mv_plain``) on the block-offset storage.  Two
+    launches on one input must give the same bits."""
     from metafem_torch.linsolve import offset_spmv
-    vals = A.vals.to(dtype)
+    from metafem_torch.linsolve.block_offset import OffsetMatrix
+    B = (A if A.vals.dtype == dtype
+         else OffsetMatrix.from_values(A.vals.to(dtype), A.layout))
     x = x.to(dtype)
     worst_rel, worst_abs = 0.0, 0.0
-    for grp in A.layout.pallas_groups:
+    for i, (grp, plan) in enumerate(zip(B.layout.pallas_groups,
+                                        B.pack_plans())):
         sl = slice(grp.dof_offset, grp.dof_offset + grp.n_vars * grp.n_cp)
         xw = x[sl].view(grp.n_vars, grp.n_cp)
-        y = offset_spmv.group_mv(vals, xw, grp)
-        y2 = offset_spmv.group_mv(vals, xw, grp)
+        packed = B.packed(i)
+        y = offset_spmv.group_mv(packed, xw, plan)
+        y2 = offset_spmv.group_mv(packed, xw, plan)
         torch.cuda.synchronize()
         if not torch.equal(y, y2):
             raise AssertionError("offset_spmv: two launches on one input "
                                  "differ")
         n_slab = len(grp.units) * grp.n_off * grp.n_cp
-        slab = vals[grp.base:grp.base + n_slab].view(
+        slab = B.vals[grp.base:grp.base + n_slab].view(
             len(grp.units), grp.n_off, grp.n_cp)
-        ref = offset_spmv.group_mv_plain(slab, xw, grp, torch.empty_like(y))
-        err = float((y - ref).abs().max())
-        scale = float(ref.abs().max())
-        worst_abs = max(worst_abs, err)
-        worst_rel = max(worst_rel, err / scale)
+        for ref in (offset_spmv.group_mv_packed_plain(packed, xw, plan,
+                                                      torch.empty_like(y)),
+                    offset_spmv.group_mv_plain(slab, xw, grp,
+                                               torch.empty_like(y))):
+            err = float((y - ref).abs().max())
+            worst_abs = max(worst_abs, err)
+            worst_rel = max(worst_rel, err / float(ref.abs().max()))
+        plan.columns = None
     return worst_rel, worst_abs
 
 
@@ -225,19 +256,9 @@ def phase_kernel(device, nel=NEL, elastic_nel=ELASTIC_NEL) -> dict:
         raise AssertionError(f"f32 kernel disagrees: {rel32}")
 
     t = _spmv_numbers(A, x, device)
-    (grp,) = A.layout.pallas_groups
-    print(f"[kernel] offset_spmv thermal {nel} f64 (G={len(grp.units)}, "
-          f"n_off={grp.n_off}, C={grp.n_vars}, n_cp={grp.n_cp}): kernel "
-          f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, CSR torch.mv "
-          f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-          f"({t['nnz']} structural entries; the whole storage "
-          f"{t['storage_bound_ms']:.4f} ms), "
-          f"{time.perf_counter() - t0:.1f} s")
-    return {"kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
-            "library_ms": t["library_ms"], "bound_ms": t["bound_ms"],
-            "storage_bound_ms": t["storage_bound_ms"],
-            "bound_by": t["bound_by"],
-            "max_abs_err": abs64, "max_rel_err_f64": max(rel64, rel_e),
+    _print_spmv("kernel", f"thermal {nel}", A, t)
+    print(f"[kernel] phase {time.perf_counter() - t0:.1f} s")
+    return {**t, "max_abs_err": abs64, "max_rel_err_f64": max(rel64, rel_e),
             "max_rel_err_f32": rel32}
 
 
@@ -336,28 +357,65 @@ def phase_gather(device) -> dict:
             "shape": (first["n_win"], first["n_idx"])}
 
 
+def _time_cold_ms(fn, device, reps: int = 20) -> float:
+    """Device time of one call with the L2 cache flushed before it: a
+    256 MiB buffer (five times the H100's 50 MB L2) is read before each
+    call (read, not written, so that L2 holds no dirty lines for the call
+    to write back), and CUDA events bracket the call alone; the
+    median."""
+    flush = torch.ones(64 * 2 ** 20, dtype=torch.float32, device=device)
+    fn()
+    events = []
+    for _ in range(reps):
+        flush.sum()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize(device)
+    return float(np.median([a.elapsed_time(b) for a, b in events]))
+
+
 def _spmv_numbers(A, x, device, plain_reps: int = 25) -> dict:
-    """The kernel on A's one dense group at x, timed beside its plain
-    version and CSR ``torch.mv`` (the library product, built on the card
-    from the structural entries and checked against the kernel), with
-    two bounds.  ``bound_ms`` counts what the product needs: the values
-    of the structural entries (``OffsetMatrix.structural_mask``), x read
-    once and y written once, two operations per entry.
-    ``storage_bound_ms`` counts what the block-offset storage makes the
-    kernel stream: all (G*n_off + 2C)*n_cp values, stored zeros
-    included."""
+    """The packed kernel on A's one dense group at x, timed over replays
+    of a CUDA graph of back-to-back launches (``ms``: the device alone;
+    the README operator's eager launches are shorter than their host
+    dispatch) and with L2 flushed before each launch (``cold_ms``), beside
+    its plain version and CSR ``torch.mv`` (the library product, built
+    on the card from the structural entries and checked against the
+    kernel), with three bounds at the card's memory rate.  ``bound_ms``
+    counts what the product needs: the values of the structural entries
+    (``OffsetMatrix.structural_mask``), x read once and y written once,
+    two operations per entry.  ``packed_bound_ms`` counts what the packed
+    layout makes the kernel move: its values with their padding, the
+    codes, the row tables, x and y (``PackPlan.bytes_per_product``).
+    ``storage_bound_ms`` counts the whole block-offset storage, stored
+    zeros included (what the dense kernel of earlier versions streamed).
+    The one-time costs: the pack plan's build (host clock, once per
+    layout, device and float width) and the pack (CUDA events, once per
+    matrix)."""
     from metafem_torch.linsolve import offset_spmv
     dtype = A.vals.dtype
     (grp,) = A.layout.pallas_groups
+    (plan,) = A.pack_plans()
     G, n_off, C, n_cp = len(grp.units), grp.n_off, grp.n_vars, grp.n_cp
     xw = x.view(C, n_cp)
     out = torch.empty_like(xw)
-    slab = A.vals[grp.base:grp.base + G * n_off * n_cp].view(G, n_off, n_cp)
-    kernel_ms = _time_ms(lambda: offset_spmv.group_mv(A.vals, xw, grp,
-                                                      out=out))
-    plain_ms = _time_ms(lambda: offset_spmv.group_mv_plain(slab, xw, grp,
-                                                           out),
-                        reps=plain_reps)
+    slab = A.vals[grp.base:grp.base + G * n_off * n_cp]
+    packed = A.packed(0)
+    pack_ms = _time_ms(lambda: offset_spmv.pack(slab, plan), reps=5,
+                       warmup=1)
+
+    def kernel():
+        offset_spmv.group_mv(packed, xw, plan, out=out)
+    kernel_ms = _time_ms(kernel, graph=True)
+    cold_ms = _time_cold_ms(kernel, device)
+    offset_spmv.packed_columns(plan)
+    plain_ms = _time_ms(lambda: offset_spmv.group_mv_packed_plain(
+        packed, xw, plan, out), reps=plain_reps)
+    plan.columns = None
     A_csr = A.to_csr()
     nnz = A_csr.values().numel()
     y = A.mv(x)
@@ -377,30 +435,49 @@ def _spmv_numbers(A, x, device, plain_reps: int = 25) -> dict:
             "bytes" if t_bytes >= t_ops else "operations")
     bound_ms, bound_by = bound(nnz)
     storage_bound_ms, _ = bound(G * n_off * n_cp)
-    return {"ms": kernel_ms, "plain_ms": plain_ms,
+    moved = plan.bytes_per_product(A.vals.element_size())
+    plan_bytes = sum(t.numel() * t.element_size() for t in (
+        plan.rows, plan.meta, plan.codes, plan.list_len, plan.positions,
+        plan.pad))
+    return {"ms": kernel_ms, "cold_ms": cold_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "storage_bound_ms": storage_bound_ms,
+            "bound_by": bound_by, "packed_bound_ms": 1e3 * moved / rate,
+            "storage_bound_ms": storage_bound_ms, "pack_ms": pack_ms,
+            "plan_build_s": plan.build_s,
+            "padding_share": plan.padding_share, "n_packed": plan.n_packed,
+            "bytes_per_product": moved, "plan_bytes": plan_bytes,
             "nnz": nnz, "stored": G * n_off * n_cp}
+
+
+def _print_spmv(tag, label, A, t, rel=None, err=None) -> None:
+    (grp,) = A.layout.pallas_groups
+    parity = ("" if rel is None else f"parity max|y-y_plain|/max|y| "
+              f"{rel:.3e} (abs {err:.3e}); ")
+    print(f"[{tag}] offset_spmv {label} {A.vals.dtype} (G={len(grp.units)}, "
+          f"n_off={grp.n_off}, C={grp.n_vars}, n_cp={grp.n_cp}): {parity}"
+          f"packed kernel {t['ms']:.4f} ms (graph replay), {t['cold_ms']:.4f} "
+          f"ms with L2 flushed; plain {t['plain_ms']:.4f} ms; CSR torch.mv "
+          f"{t['library_ms']:.4f} ms; structural bound {t['bound_ms']:.4f} "
+          f"ms from {t['nnz']} entries ({100 * t['bound_ms'] / t['ms']:.0f}%"
+          f" of it, {100 * t['bound_ms'] / t['cold_ms']:.0f}% cold); "
+          f"packed-bytes bound {t['packed_bound_ms']:.4f} ms "
+          f"({t['bytes_per_product']} B per product, "
+          f"{100 * t['packed_bound_ms'] / t['ms']:.0f}%); whole-storage "
+          f"bound {t['storage_bound_ms']:.4f} ms from {t['stored']} stored; "
+          f"{t['n_packed']} packed slots, padding "
+          f"{100 * t['padding_share']:.2f}%; plan {t['plan_bytes'] / 1e6:.1f} "
+          f"MB built in {t['plan_build_s']:.3f} s; pack {t['pack_ms']:.3f} ms")
 
 
 def _spmv_at_size(A, rng, device, label, tag="flagship") -> dict:
     """The SpMV kernel on the operator A (its own float type): parity
-    against the plain version, then ``_spmv_numbers``."""
+    against the plain versions, then ``_spmv_numbers``."""
     dtype = A.vals.dtype
     x = torch.as_tensor(rng.standard_normal(A.n), dtype=dtype,
                         device=device)
     rel, err = _parity(A, x, dtype)
-    (grp,) = A.layout.pallas_groups
     t = _spmv_numbers(A, x, device, plain_reps=10)
-    print(f"[{tag}] offset_spmv {label} {dtype} (G={len(grp.units)}, "
-          f"n_off={grp.n_off}, C={grp.n_vars}, n_cp={grp.n_cp}): parity "
-          f"max|y-y_plain|/max|y| {rel:.3e} (abs {err:.3e}); kernel "
-          f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, CSR torch.mv "
-          f"{t['library_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms from "
-          f"{t['nnz']} structural entries "
-          f"({100 * t['bound_ms'] / t['ms']:.0f}% of it), "
-          f"{t['storage_bound_ms']:.4f} ms from all {t['stored']} stored "
-          f"({100 * t['storage_bound_ms'] / t['ms']:.0f}%)")
+    _print_spmv(tag, label, A, t, rel, err)
     return {"rel": rel, "max_abs_err": err, **t}
 
 
@@ -664,8 +741,9 @@ def phase_3d(device, e_number=E3D) -> dict:
               f"and host clock): {wall_ms / n_cyc:.3f} ms wall, device "
               f"busy {busy / n_cyc:.3f} ms (idle share "
               f"{1 - busy / wall_ms:.1%}), of it the SpMV kernel "
-              f"{spmv / n_cyc:.3f} ms; "
-              f"{(n_launch or 0) / n_cyc:.1f} kernel launches per cycle")
+              f"{spmv / n_cyc:.3f} ms ({spmv / max(busy, 1e-12):.1%} of the "
+              f"busy time); {(n_launch or 0) / n_cyc:.1f} kernel launches "
+              f"per cycle")
     del As, residue
 
     # load step 1: update_one_step, assembly and solves timed apart
@@ -698,6 +776,7 @@ def phase_3d(device, e_number=E3D) -> dict:
     it1 = sum(it for it, _ in log1)
     ana1 = he.analytic_uniaxial_nh(sigma1, mu, lam)
     err1 = abs(d1 - ana1) / abs(ana1)
+    its1 = [it for it, _ in log1]
     print(f"[3d] load step 1 (P={sigma1:g}, update_one_step): final "
           f"residual {res1:.3e}, d1/L {d1:.6f} vs analytic {ana1:.6f} "
           f"(rel err {err1:.2e}); solver passes (iterations, true "
@@ -705,6 +784,9 @@ def phase_3d(device, e_number=E3D) -> dict:
           f"{step1_s:.2f} s (assembly {parts['assembly']:.2f} s, solves "
           f"{parts['solve']:.2f} s); offset_spmv launches {launches1} "
           f"= {launches1 / max(it1 / 4, 1):.2f} per BiCGStab(4) cycle")
+    print(f"[3d] load step 1 iterations per solve {its1}; with the dense "
+          f"kernel of earlier versions {list(DENSE_KERNEL_ITERS)} "
+          f"({'the same' if tuple(its1) == DENSE_KERNEL_ITERS else 'differ'})")
     if not (res1 < 1e-5 and err1 < 0.02):
         raise AssertionError(f"load step 1: residual {res1}, error {err1}")
     if device.type == "cuda" and launches1 <= 0:
@@ -737,8 +819,9 @@ def phase_3d(device, e_number=E3D) -> dict:
     print(f"[3d] peak device memory {peak / 2 ** 30:.2f} GiB "
           f"(torch.cuda.max_memory_allocated); phase {phase_s:.1f} s")
     return {"n_cp": n_cp, "dof": dof, "G": G, "n_off": n_off, "C": C,
-            "launches": launches1 + launches2, "step1_s": step1_s,
-            "step2_s": step2_s, "peak_bytes": peak,
+            "launches": launches1 + launches2, "launches1": launches1,
+            "launches2": launches2, "step1_s": step1_s,
+            "step2_s": step2_s, "iters1": its1, "peak_bytes": peak,
             "spmv64": spmv64, "spmv32": spmv32, "profile": profile}
 
 
@@ -764,6 +847,9 @@ def main() -> None:
     print("[time] " + ", ".join(f"{k} {v:.2f} s" for k, v in times.items())
           + f", total {time.perf_counter() - t_start:.2f} s on {env['smi']}")
     s32 = flag["spmv32"]
+
+    def numbers(t):
+        return {k: t[k] for k in SPMV_KEYS}
     print(json.dumps({"kernels": [{
         "name": "offset_spmv", "route": "cuda",
         "source": "metafem_torch/csrc/offset_spmv.cu",
@@ -775,31 +861,25 @@ def main() -> None:
         "ms": s32["ms"], "plain_ms": s32["plain_ms"],
         "bound_ms": s32["bound_ms"], "bound_by": s32["bound_by"],
         "library_ms": s32["library_ms"],
-        # bound_ms counts the structural entries; storage_bound_ms all
-        # the stored values, zeros included (see _spmv_numbers)
-        "storage_bound_ms": s32["storage_bound_ms"],
+        # bound_ms counts the structural entries, packed_bound_ms what
+        # the packed layout moves, storage_bound_ms all the stored values
+        # (see _spmv_numbers)
+        "flagship_f32": numbers(s32),
         "launches_by_type": flag["path_launches"],
         "launches_per_step": flag["per_step"],
-        "f64_flagship": {k: flag["spmv64"][k] for k in
-                         ("ms", "plain_ms", "bound_ms", "storage_bound_ms",
-                          "library_ms", "max_abs_err")},
+        "f64_flagship": numbers(flag["spmv64"]),
         "readme_step_launches": sl["launches"],
-        "readme_f64": {"ms": kern["kernel_ms"], "plain_ms": kern["plain_ms"],
-                       "bound_ms": kern["bound_ms"],
-                       "storage_bound_ms": kern["storage_bound_ms"],
-                       "library_ms": kern["library_ms"]},
+        "readme_f64": numbers(kern),
         "hyperelastic_3d": {
-            **{k: p3d["spmv64"][k] for k in
-               ("ms", "plain_ms", "bound_ms", "storage_bound_ms",
-                "library_ms", "nnz", "stored")},
+            **numbers(p3d["spmv64"]),
             "max_rel_err_f64": p3d["spmv64"]["rel"],
             "max_rel_err_f32": p3d["spmv32"]["rel"],
-            "launches": p3d["launches"],
+            "launches": p3d["launches"], "launches_step1": p3d["launches1"],
+            "launches_step2": p3d["launches2"],
+            "iters_step1": p3d["iters1"],
             "G": p3d["G"], "n_off": p3d["n_off"], "C": p3d["C"],
             "n_cp": p3d["n_cp"], "dof": p3d["dof"],
-            "f32": {k: p3d["spmv32"][k] for k in
-                    ("ms", "plain_ms", "bound_ms", "storage_bound_ms",
-                     "library_ms")}},
+            "f32": numbers(p3d["spmv32"])},
         "max_rel_err_f64": max(kern["max_rel_err_f64"], flag["spmv64"]["rel"],
                                p3d["spmv64"]["rel"]),
         "max_rel_err_f32": max(kern["max_rel_err_f32"], s32["rel"],

@@ -23,14 +23,15 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 #: the port's CUDA sources live here
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 #: nvcc flags of every hand-written kernel: Hopper (sm_90a), plain-C
-#: shared library
+#: shared library; ptxas reports each kernel's registers and spills
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def build_shared(src: str, name: str, command: Sequence[str]) -> str:
     """Compile ``src`` with ``command + [src, "-o", out]`` unless a library
-    built from the same source and command exists; return its path.
+    built from the same source and command exists; return its path.  The
+    compiler's output is kept beside the library (``build_log``).
     Raises ``subprocess.CalledProcessError`` (with the compiler's output)
     when the build fails."""
     with open(src, "rb") as f:
@@ -42,8 +43,10 @@ def build_shared(src: str, name: str, command: Sequence[str]) -> str:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        subprocess.run(list(command) + [src, "-o", tmp], check=True,
-                       capture_output=True, text=True)
+        done = subprocess.run(list(command) + [src, "-o", tmp], check=True,
+                              capture_output=True, text=True)
+        with open(so_path[:-3] + ".log", "w") as f:
+            f.write(done.stdout + done.stderr)
         os.replace(tmp, so_path)
     finally:
         if os.path.exists(tmp):
@@ -67,3 +70,13 @@ def build_cuda(name: str) -> str:
     return the library's path."""
     return build_shared(os.path.join(CSRC_DIR, name + ".cu"), name,
                         [nvcc(), *NVCC_FLAGS])
+
+
+def build_log(so_path: str) -> str:
+    """The compiler's output of the build of ``so_path`` ("" when the
+    library was built elsewhere)."""
+    log = so_path[:-3] + ".log"
+    if not os.path.exists(log):
+        return ""
+    with open(log) as f:
+        return f.read()

@@ -19,9 +19,10 @@ Newton path never materializes CSR at all.
 The host half (``Segment``, ``PallasGroup``, ``OffsetLayout``,
 ``build_offset_layout``) is numpy only and is a copy of the reference
 package's layout builder, so both packages agree on the storage order.
-The device half is ``OffsetMatrix``: on a CUDA tensor ``mv`` launches the
-hand-written kernel of ``offset_spmv.py`` once per dense group; on a CPU
-tensor it runs that kernel's plain PyTorch version.
+The device half is ``OffsetMatrix``: ``mv`` packs each dense group's
+structural values once (``offset_spmv.PackPlan``) and, on a CUDA tensor,
+launches the hand-written kernel of ``offset_spmv.py`` once per dense
+group; on a CPU tensor it runs that kernel's plain PyTorch version.
 """
 
 from __future__ import annotations
@@ -301,28 +302,58 @@ def sorted_segment_sum(data: torch.Tensor, plan, num: int) -> torch.Tensor:
     return out
 
 
+def _device_tables(layout: OffsetLayout, device: torch.device) -> dict:
+    """The layout's index tables on ``device``, copied from the host once
+    per (layout, device) and kept on the layout: the COO tail's rows and
+    columns and its segment-sum plans, the diagonal's storage positions,
+    each group's unit tables, and the pack plans of the SpMV (by vector
+    width).  A product, a scaling or a new matrix then copies nothing
+    from the host."""
+    tables = layout.__dict__.setdefault("_device_tables", {})
+    key = str(device)
+    if key not in tables:
+        def dev(a):
+            return torch.as_tensor(np.asarray(a, np.int64), device=device)
+        tables[key] = {
+            "coo_rows": dev(layout.coo_rows),
+            "coo_cols": dev(layout.coo_cols),
+            "diag": dev(layout.diag_storage),
+            "pds": [dev([pd for pd, _pb in g.units])
+                    for g in layout.pallas_groups],
+            "pbs": [dev([pb for _pd, pb in g.units])
+                    for g in layout.pallas_groups],
+            "tail_plans": {}, "pack_plans": {}}
+    return tables[key]
+
+
 @dataclasses.dataclass
 class OffsetMatrix:
-    """Square sparse matrix in block-offset storage."""
+    """Square sparse matrix in block-offset storage.
+
+    ``mv`` runs on the packed structural values of each dense group
+    (``offset_spmv.PackPlan``), gathered from ``vals`` at the matrix's
+    first product and kept in ``_packed``.  That copy stays valid because
+    no code of the port changes ``vals`` in place after ``from_values``:
+    every assembly, scaling and cast makes a new matrix."""
     vals: torch.Tensor           # [n_storage]
     coo_rows: torch.Tensor       # device copies of the tail indices
     coo_cols: torch.Tensor
     layout: OffsetLayout         # static
+    _packed: dict = dataclasses.field(default_factory=dict, repr=False,
+                                      compare=False)
 
     @classmethod
     def from_values(cls, vals: torch.Tensor,
                     layout: OffsetLayout) -> "OffsetMatrix":
-        dev = vals.device
-        return cls(vals,
-                   torch.as_tensor(layout.coo_rows.astype(np.int64),
-                                   device=dev),
-                   torch.as_tensor(layout.coo_cols.astype(np.int64),
-                                   device=dev),
-                   layout)
+        t = _device_tables(layout, vals.device)
+        return cls(vals, t["coo_rows"], t["coo_cols"], layout)
 
     @property
     def n(self) -> int:
         return self.layout.n
+
+    def _tables(self) -> dict:
+        return _device_tables(self.layout, self.vals.device)
 
     def _check_tail(self) -> None:
         if self.layout.blk_b:
@@ -333,29 +364,55 @@ class OffsetMatrix:
     def _tail_plan(self, by: str):
         """The COO tail's segment-sum plan over its rows or its columns,
         built once per layout and device."""
-        lo = self.layout
-        plans = lo.__dict__.setdefault("_tail_plans", {})
-        key = (by, str(self.vals.device))
-        if key not in plans:
-            plans[key] = sorted_segment_plan(
+        plans = self._tables()["tail_plans"]
+        if by not in plans:
+            lo = self.layout
+            plans[by] = sorted_segment_plan(
                 lo.coo_rows if by == "rows" else lo.coo_cols,
                 self.vals.device)
-        return plans[key]
+        return plans[by]
+
+    def pack_plans(self) -> list:
+        """One ``offset_spmv.PackPlan`` per dense group for vals' device
+        and float width, built from ``structural_mask`` once per layout,
+        device and width."""
+        vec = offset_spmv.VEC_BYTES // self.vals.element_size()
+        plans = self._tables()["pack_plans"]
+        if vec not in plans:
+            keep = self.structural_mask()
+            plans[vec] = [
+                offset_spmv.build_pack_plan(
+                    keep[g.base:g.base + len(g.units) * g.n_off * g.n_cp]
+                    .view(len(g.units), g.n_off, g.n_cp), g, vec)
+                for g in self.layout.pallas_groups]
+        return plans[vec]
+
+    def packed(self, i: int) -> torch.Tensor:
+        """Dense group i's structural values, gathered through its pack
+        plan at the first call and kept."""
+        if i not in self._packed:
+            g = self.layout.pallas_groups[i]
+            n_slab = len(g.units) * g.n_off * g.n_cp
+            self._packed[i] = offset_spmv.pack(
+                self.vals[g.base:g.base + n_slab], self.pack_plans()[i])
+        return self._packed[i]
 
     def mv(self, x: torch.Tensor) -> torch.Tensor:
-        """y = A x: one offset_spmv.group_mv per dense group (the
-        hand-written kernel on CUDA, its plain version on the CPU) plus
-        the COO tail as a sorted segment sum."""
+        """y = A x: one offset_spmv.group_mv per dense group on its packed
+        values (the hand-written kernel on CUDA, its plain version on the
+        CPU) plus the COO tail as a sorted segment sum."""
         lo = self.layout
         self._check_tail()
         covered = sum(g.n_vars * g.n_cp for g in lo.pallas_groups)
         y = (torch.empty if covered == lo.n else torch.zeros)(
             lo.n, dtype=x.dtype, device=x.device)
-        for grp in lo.pallas_groups:
+        plans = self.pack_plans()
+        for i, grp in enumerate(lo.pallas_groups):
             n_dof = grp.n_vars * grp.n_cp
             sl = slice(grp.dof_offset, grp.dof_offset + n_dof)
-            offset_spmv.group_mv(self.vals, x[sl].view(grp.n_vars, grp.n_cp),
-                                 grp, out=y[sl].view(grp.n_vars, grp.n_cp))
+            offset_spmv.group_mv(self.packed(i),
+                                 x[sl].view(grp.n_vars, grp.n_cp), plans[i],
+                                 out=y[sl].view(grp.n_vars, grp.n_cp))
         if lo.n_coo:
             y = y + sorted_segment_sum(
                 self.vals[lo.n_dense:] * x[self.coo_cols],
@@ -395,26 +452,22 @@ class OffsetMatrix:
         """The diagonal (``diag_pos`` is accepted for the signature of
         the reference's solvers: block-offset storage knows its diagonal
         positions)."""
-        lo = self.layout
-        ds = torch.as_tensor(lo.diag_storage, device=self.vals.device)
+        ds = self._tables()["diag"]
         d = self.vals[ds.clamp(min=0)]
         return torch.where(ds < 0, torch.zeros_like(d), d)
 
     def _scaled_groups(self, vals: torch.Tensor, s: torch.Tensor,
                        by_row: bool) -> torch.Tensor:
-        for grp in self.layout.pallas_groups:
+        t = self._tables()
+        for i, grp in enumerate(self.layout.pallas_groups):
             C, n_cp, n_off = grp.n_vars, grp.n_cp, grp.n_off
             G = len(grp.units)
             sw = s[grp.dof_offset:grp.dof_offset + C * n_cp].view(C, n_cp)
             if by_row:
-                pds = torch.as_tensor([pd for (pd, _pb) in grp.units],
-                                      device=s.device)
-                sc = sw[pds][:, None, :].expand(G, n_off, n_cp)
+                sc = sw[t["pds"][i]][:, None, :].expand(G, n_off, n_cp)
             else:
-                pbs = torch.as_tensor([pb for (_pd, pb) in grp.units],
-                                      device=s.device)
                 sc = offset_spmv.shifted_stack(sw, grp.offsets)
-                sc = sc[:, pbs].transpose(0, 1)      # [G, n_off, n_cp]
+                sc = sc[:, t["pbs"][i]].transpose(0, 1)  # [G, n_off, n_cp]
             region = slice(grp.base, grp.base + G * n_off * n_cp)
             vals[region] = vals[region] * sc.reshape(-1)
         return vals

@@ -1,5 +1,6 @@
-"""Dense-group SpMV of the block-offset storage: the hand-written CUDA
-kernel and its plain PyTorch version.
+"""Dense-group SpMV of the block-offset storage: the pack plan, the
+hand-written CUDA kernel over the packed values, and two plain PyTorch
+versions.
 
 For one workpiece group (block_offset.PallasGroup) with G units (pd, pb),
 n_off sorted offsets d_k and C channels of n_cp rows:
@@ -8,38 +9,68 @@ n_off sorted offsets d_k and C channels of n_cp rows:
 
 with x zero outside [0, n_cp).  This replaces the TPU kernel
 ``metafem/linsolve/pallas_spmv.py:_group_kernel`` (its wrapper
-``group_mv``).  On CUDA it is the default SpMV of every Krylov solve.
+``group_mv``).  On CUDA it is the SpMV of every Krylov solve.
 
-Kernel (``csrc/offset_spmv.cu``): one thread per output row and channel
-walks the units and offsets in the reference's order, reads the values
-and x coalesced with a bounds test on x, and writes y once.  Its bound is
-memory: the least traffic is (G*n_off + 2*C)*n_cp*sizeof(T) bytes, e.g.
-27 * 321,201 * 8 B = 69.4 MB per product for the thermal strip at
-nel=(400,200) in f64, about 21 us at the 3.35 TB/s of an H100 SXM.  The
-TPU kernel's halo'd x window staged in fast memory is not carried over:
-its 3D radius (~2.6e4 rows) would not fit a block's 227 KB of shared
-memory, and the offsets cluster on a few lattice rows that L1 and L2
-keep.
+Most of the stored values are zeros that the assembly never writes: the
+rows of ghost control points (serendipity face and body centres) hold
+only their diagonal, and an occupied row couples to a part of the
+offsets (on the 3D tangent 89M of 368M stored values are structural).
+So the product runs on a **pack plan** (``PackPlan``), built once per
+layout, device and vector width from the storage's structural entries:
 
-The kernel is built with nvcc for sm_90a into a plain-C shared library
+- rows are (pd, r); within one row every participating unit of channel
+  pd has the same structural offsets (checked when the plan is built;
+  where a unit lacks an offset that another one has, the entry is kept
+  as a stored value, counted in ``n_fill``), so a row is one list of
+  one-byte offset codes k (decoded through a table of d_k) shared by
+  the units of a bit mask;
+- rows with the same offsets share one code list: a lattice has a few
+  hundred distinct lists (interior corner, edge and ghost points and
+  their boundary cuts), so a row carries a list number and not its
+  codes;
+- rows are sorted by entry count, then by code list, within windows of
+  ``WINDOW`` rows and cut into slices of 32 rows, one warp each; slices
+  are ordered by their longest row;
+- the packed values are sliced jagged-diagonal: slot group m (``vec``
+  slots, 16 bytes) of every slice that reaches it lies at
+  ``ptr[m] + (slice*32 + lane)*vec``, so a warp reads 512 contiguous
+  bytes per load.  A row's slots run unit by unit, each unit's codes
+  padded to a multiple of ``vec`` with zero values.
+
+A row adds its entries in the reference's (unit, offset) order with the
+zeros left out, so y equals the dense formula's: a zero value adds
+nothing to the sum.
+
+``group_mv`` launches the kernel (``csrc/offset_spmv.cu``) on a CUDA
+tensor and runs ``group_mv_packed_plain`` on a CPU tensor; on any other
+device it raises.  ``group_mv_plain``, the dense formula over the
+block-offset storage, is the oracle the packed product is held to.  The
+kernel is built with nvcc for sm_90a into a plain-C shared library
 (metafem_torch/_build/) at first use and called through ctypes on the
-current CUDA stream.  On a CPU tensor ``group_mv`` runs the plain version;
-on a CUDA tensor it launches the kernel or raises.  ``group_mv.launches``
-counts kernel launches.
+current CUDA stream.  ``group_mv.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import dataclasses
+import time
+from typing import Optional, Tuple
 
 import torch
 
 from ..buildlib import build_cuda
 
+#: rows per sorting window of the pack plan (a multiple of SLICE): rows
+#: are sorted by length within a window, so a slice's rows lie close
+#: together on the lattice and share x's cache lines
+WINDOW = 4096
+#: rows per slice: one warp
+SLICE = 32
+#: bytes per vector load of the packed values
+VEC_BYTES = 16
+
 _LIB: Optional[ctypes.CDLL] = None
-#: per (group, device): the unit table [G, 2] and offsets [n_off], int64
-_TABLES: dict = {}
 
 
 def load_library() -> ctypes.CDLL:
@@ -47,9 +78,9 @@ def load_library() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         lib = ctypes.CDLL(build_cuda("offset_spmv"))
-        for name in ("offset_spmv_f64", "offset_spmv_f32"):
+        for name in ("offset_spmv_packed_f64", "offset_spmv_packed_f32"):
             fn = getattr(lib, name)
-            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 4
+            fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int64] * 7
                            + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
         _LIB = lib
@@ -67,8 +98,10 @@ def shifted_stack(xw: torch.Tensor, offsets) -> torch.Tensor:
 
 def group_mv_plain(slab: torch.Tensor, xw: torch.Tensor, group,
                    out: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: the shifted multiply-adds in
-    the kernel's order (units, then offsets).  ``slab`` [G, n_off, n_cp]."""
+    """The dense formula in plain PyTorch over the block-offset storage:
+    the shifted multiply-adds in the reference's order (units, then
+    offsets).  ``slab`` [G, n_off, n_cp].  The oracle of the packed
+    product."""
     shifted = shifted_stack(xw, group.offsets)
     acc = [None] * group.n_vars
     for g, (pd, pb) in enumerate(group.units):
@@ -83,61 +116,366 @@ def group_mv_plain(slab: torch.Tensor, xw: torch.Tensor, group,
     return out
 
 
-def _tables(group, device):
-    key = (group, device)
-    got = _TABLES.get(key)
-    if got is None:
-        units = torch.tensor(group.units, dtype=torch.int64,
-                             device=device).reshape(-1, 2)
-        offs = torch.tensor(group.offsets, dtype=torch.int64, device=device)
-        got = _TABLES[key] = (units, offs)
-    return got
+@dataclasses.dataclass(eq=False)
+class PackPlan:
+    """Packed layout of one dense group's structural entries on one
+    device (see the module docstring).  Per packed row q = slice*32 +
+    lane: ``rows[q]`` the output row pd*n_cp + r (-1 for the lanes that
+    pad the last slice) and ``meta[q]`` = mask | list << 8, with mask the
+    row's participating units (bit i: the i-th unit of channel pd) and
+    list the row's code list.  Code list l holds ``list_len[l]`` codes
+    from byte ``l * 4 * words`` of ``codes``, padded with its first code.
+    Slot group m of the packed values starts at ``ptr[m]``.
+    ``positions`` gathers the packed values from the storage; ``pad``
+    lists the packed slots that hold no entry (zeroed after the
+    gather)."""
+    group: object
+    vec: int                     # slots per 16-byte load
+    n_slices: int
+    n_groups: int                # slot groups of the longest slice
+    maxu: int                    # units per channel, at most
+    words: int                   # 4-byte code words per code list
+    ptr_host: Tuple[int, ...]    # ptr on the host, for the plain version
+    rows: torch.Tensor           # int32 [n_slices*32]
+    meta: torch.Tensor           # int32 [n_slices*32]
+    codes: torch.Tensor          # uint8 [n_lists * 4 * words]
+    list_len: torch.Tensor       # int32 [n_lists]
+    ptr: torch.Tensor            # int64 [n_groups + 1]
+    dk: torch.Tensor             # int32 [n_off]: d of code k
+    chan_pb: torch.Tensor        # int32 [C, maxu]: pb of a channel's unit
+    chan_unit: torch.Tensor      # int64 [C, maxu]: its unit index g
+    positions: torch.Tensor      # int32 or int64 [n_packed]
+    pad: torch.Tensor            # int64 [n_pad]
+    n_entries: int               # entries read: structural + n_fill
+    n_fill: int                  # stored values kept to share a code list
+    build_s: float = 0.0
+    #: the plain version's x index per packed slot (``packed_columns``),
+    #: built at its first call; None frees it
+    columns: Optional[torch.Tensor] = dataclasses.field(default=None,
+                                                        repr=False)
+
+    @property
+    def n_packed(self) -> int:
+        return self.ptr_host[-1]
+
+    @property
+    def n_lists(self) -> int:
+        return self.list_len.numel()
+
+    @property
+    def padding_share(self) -> float:
+        """Share of the packed slots that hold no entry."""
+        return 1.0 - self.n_entries / max(self.n_packed, 1)
+
+    def bytes_per_product(self, itemsize: int) -> int:
+        """Bytes one product moves at least: the packed values, the row
+        tables and the code lists once, x read once and y written once."""
+        g = self.group
+        return (self.n_packed * itemsize + 8 * self.rows.numel()
+                + self.codes.numel() + 4 * self.n_lists
+                + 2 * g.n_vars * g.n_cp * itemsize)
 
 
-def group_mv(vals: torch.Tensor, xw: torch.Tensor, group,
+def _popcount(mask: torch.Tensor, bits: int) -> torch.Tensor:
+    n = torch.zeros_like(mask)
+    for i in range(bits):
+        n += (mask >> i) & 1
+    return n
+
+
+def _nth_bit(mask: torch.Tensor, u: torch.Tensor, bits: int) -> torch.Tensor:
+    """Index of the u-th set bit (from 0) of each mask."""
+    out = torch.zeros_like(mask)
+    rank = torch.zeros_like(mask)
+    for i in range(bits):
+        bit = (mask >> i) & 1
+        out = torch.where((bit == 1) & (rank == u), i, out)
+        rank += bit
+    return out
+
+
+def _entries(plan: PackPlan, q0: int, q1: int) -> tuple:
+    """The entries of packed rows [q0, q1) in the kernel's addressing:
+    (packed slot, channel pd, unit bit i, code k, lattice row r), one per
+    structural entry, in each row's order."""
+    dev = plan.rows.device
+    v = plan.vec
+    meta = plan.meta[q0:q1].long()
+    mask = meta & 0xFF
+    lst = meta >> 8
+    L = plan.list_len.long()[lst]
+    n_e = _popcount(mask, plan.maxu) * L
+    q = torch.repeat_interleave(torch.arange(q0, q1, device=dev), n_e)
+    start = torch.cumsum(n_e, 0) - n_e
+    jj = torch.arange(q.numel(), device=dev) - start[q - q0]
+    Lq = L[q - q0]
+    u = jj // Lq
+    c = jj - u * Lq
+    del jj
+    ng = (Lq + v - 1) // v                      # slot groups per unit
+    slot = plan.ptr[u * ng + c // v] + q * v + c % v
+    del ng
+    code = plan.codes[lst[q - q0] * (4 * plan.words) + c].long()
+    del c
+    bit = _nth_bit(mask[q - q0], u, plan.maxu)
+    row = plan.rows[q].long()
+    n_cp = plan.group.n_cp
+    pd = row // n_cp
+    return slot, pd, bit, code, row - pd * n_cp
+
+
+def _row_chunks(plan: PackPlan):
+    """Packed-row ranges of at most ~2^24 entries each."""
+    g = plan.group
+    step = max(SLICE, (1 << 24) // max(1, plan.maxu * g.n_off)
+               // SLICE * SLICE)
+    n_q = plan.rows.numel()
+    for q0 in range(0, n_q, step):
+        yield q0, min(n_q, q0 + step)
+
+
+def _code_lists(K: torch.Tensor, vec: int) -> tuple:
+    """The distinct rows of K [n_rows, n_off] (bool): (list id of each
+    row, codes [n_lists, 4*words] uint8 with each list's offsets k in
+    order, padded to a multiple of ``vec`` and of 4 with its first code,
+    list lengths [n_lists], words)."""
+    dev = K.device
+    n_rows, n_off = K.shape
+    bits = torch.arange(64, device=dev)
+    keys = torch.stack(
+        [(K[:, j:j + 64].long() << bits[:min(64, n_off - j)]).sum(1)
+         for j in range(0, n_off, 64)], 1)
+    _, lst = torch.unique(keys, dim=0, return_inverse=True)
+    del keys
+    n_lists = int(lst.max()) + 1 if n_rows else 0
+    rep = torch.full((n_lists,), n_rows, dtype=torch.int64, device=dev)
+    rep.scatter_reduce_(0, lst, torch.arange(n_rows, device=dev), "amin")
+    Kl = K[rep]
+    length = Kl.sum(1)
+    Lp = (length + vec - 1) // vec * vec
+    words = max(1, (int(Lp.max()) + 3) // 4) if n_lists else 1
+    nz = Kl.nonzero()                             # (list, k), row-major
+    first = torch.zeros(n_lists, dtype=torch.uint8, device=dev)
+    start = torch.cumsum(length, 0) - length
+    has = length > 0
+    first[has] = nz[start[has], 1].to(torch.uint8)
+    codes = first[:, None].repeat(1, 4 * words)
+    c = torch.arange(nz.shape[0], device=dev) - start[nz[:, 0]]
+    codes[nz[:, 0], c] = nz[:, 1].to(torch.uint8)
+    return lst, codes.reshape(-1), length.to(torch.int32), words
+
+
+def build_pack_plan(keep: torch.Tensor, group, vec: int) -> PackPlan:
+    """The pack plan of one dense group on keep's device.  ``keep``: bool
+    [G, n_off, n_cp], True at the structural entries of the group's
+    storage (``OffsetMatrix.structural_mask``); ``vec``: slots per
+    16-byte load (2 for float64, 4 for float32)."""
+    t0 = time.perf_counter()
+    dev = keep.device
+    G, n_off, C, n_cp = (len(group.units), group.n_off, group.n_vars,
+                         group.n_cp)
+    if tuple(keep.shape) != (G, n_off, n_cp) or keep.dtype != torch.bool:
+        raise ValueError(f"keep {tuple(keep.shape)} {keep.dtype} is not a "
+                         f"bool mask of {(G, n_off, n_cp)}")
+    chan = [[g for g, (pd, _pb) in enumerate(group.units) if pd == c]
+            for c in range(C)]
+    maxu = max(1, max(len(u) for u in chan))
+    if n_off > 256 or maxu > 8 or C * n_cp >= 2 ** 31:
+        raise NotImplementedError(
+            f"pack plan: n_off {n_off} > 256, {maxu} units per channel "
+            f"> 8 or {C * n_cp} rows >= 2^31")
+    i64 = torch.int64
+    masks, Kts = [], []
+    n_fill = 0
+    for units in chan:
+        if not units:
+            masks.append(torch.zeros(n_cp, dtype=i64, device=dev))
+            Kts.append(torch.zeros((n_cp, n_off), dtype=torch.bool,
+                                   device=dev))
+            continue
+        Bu = keep[units]                          # [nu, n_off, n_cp]
+        K = Bu.any(0)                             # the row's code list
+        part = Bu.any(1)                          # [nu, n_cp]
+        n_fill += int((K & ~Bu & part[:, None, :]).sum())
+        del Bu
+        mask = torch.zeros(n_cp, dtype=i64, device=dev)
+        for i in range(len(units)):
+            mask |= part[i].long() << i
+        masks.append(mask)
+        Kts.append(K.t())
+    K = torch.cat(Kts)                            # [C*n_cp, n_off]
+    mask_nat = torch.cat(masks)
+    del Kts, masks
+    lst_nat, codes, list_len, words = _code_lists(K, vec)
+    if list_len.numel() >= 2 ** 23:
+        raise NotImplementedError(f"pack plan: {list_len.numel()} code "
+                                  f"lists >= 2^23")
+    L_nat = K.sum(1)
+    del K
+    n_rows = C * n_cp
+    E = _popcount(mask_nat, maxu) * L_nat
+    e_top = int(E.max()) + 1 if n_rows else 1
+    ids = torch.arange(n_rows, device=dev)
+    # within a window: longest rows first, rows of one code list together
+    order = torch.argsort(((ids // WINDOW) * e_top + (e_top - 1 - E))
+                          * list_len.numel() + lst_nat, stable=True)
+    del ids, E
+    n_slices = -(-n_rows // SLICE)
+    fill = n_slices * SLICE - n_rows
+    order = torch.cat([order, torch.full((fill,), -1, dtype=i64,
+                                         device=dev)])
+
+    def take(a):                                  # padding lanes: 0
+        return torch.where(order >= 0, a[order.clamp(min=0)], 0)
+    L_s, mask_s, lst_s = take(L_nat), take(mask_nat), take(lst_nat)
+    Ep = _popcount(mask_s, maxu) * ((L_s + vec - 1) // vec * vec)
+    Ep_max = Ep.view(n_slices, SLICE).amax(1)
+    sl = torch.argsort(-Ep_max, stable=True)
+
+    def by_slice(a):
+        return a.view(n_slices, SLICE)[sl].reshape(-1)
+    rows = by_slice(order)
+    meta = by_slice(mask_s | (lst_s << 8))
+    n_grp = (Ep_max[sl] // vec).cpu()
+    del order, L_s, mask_s, lst_s, Ep, Ep_max, sl, L_nat, mask_nat, lst_nat
+    M = int(n_grp[0]) if n_slices else 0
+    cnt = torch.bincount(n_grp, minlength=M + 1)
+    n_act = n_slices - torch.cumsum(cnt, 0)[:M]   # slices reaching group m
+    ptr_host = [0]
+    for a in n_act.tolist():
+        ptr_host.append(ptr_host[-1] + a * SLICE * vec)
+    chan_pb = torch.zeros((C, maxu), dtype=torch.int32)
+    chan_unit = torch.zeros((C, maxu), dtype=i64)
+    for pd, units in enumerate(chan):
+        for i, g in enumerate(units):
+            chan_pb[pd, i] = group.units[g][1]
+            chan_unit[pd, i] = g
+    plan = PackPlan(
+        group=group, vec=vec, n_slices=n_slices, n_groups=M, maxu=maxu,
+        words=words, ptr_host=tuple(ptr_host), rows=rows.to(torch.int32),
+        meta=meta.to(torch.int32), codes=codes, list_len=list_len,
+        ptr=torch.tensor(ptr_host, dtype=i64, device=dev),
+        dk=torch.tensor(group.offsets, dtype=torch.int32, device=dev),
+        chan_pb=chan_pb.to(dev), chan_unit=chan_unit.to(dev),
+        positions=torch.empty(0, dtype=i64, device=dev),
+        pad=torch.empty(0, dtype=i64, device=dev),
+        n_entries=0, n_fill=n_fill)
+    del rows, meta
+    # storage position of every entry, through the kernel's addressing
+    n_storage = G * n_off * n_cp
+    pdtype = torch.int32 if n_storage < 2 ** 31 else i64
+    positions = torch.zeros(plan.n_packed, dtype=pdtype, device=dev)
+    used = torch.zeros(plan.n_packed, dtype=torch.bool, device=dev)
+    n_entries = 0
+    for q0, q1 in _row_chunks(plan):
+        slot, pd, bit, code, r = _entries(plan, q0, q1)
+        g = plan.chan_unit[pd, bit]
+        positions[slot] = ((g * n_off + code) * n_cp + r).to(pdtype)
+        used[slot] = True
+        n_entries += slot.numel()
+    plan.positions = positions
+    plan.pad = (~used).nonzero().view(-1)
+    plan.n_entries = n_entries
+    if n_entries != int(keep.sum()) + n_fill:
+        raise AssertionError(f"pack plan holds {n_entries} entries, not "
+                             f"{int(keep.sum())} + {n_fill}")
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    plan.build_s = time.perf_counter() - t0
+    return plan
+
+
+def pack(slab: torch.Tensor, plan: PackPlan) -> torch.Tensor:
+    """The packed values of one group: ``slab`` (the group's storage,
+    flat [G*n_off*n_cp]) gathered through the plan, padding zeroed."""
+    packed = torch.index_select(slab, 0, plan.positions)
+    return packed.index_fill_(0, plan.pad, 0)
+
+
+def packed_columns(plan: PackPlan) -> torch.Tensor:
+    """x index (pb*n_cp + r + d_k into x [C*n_cp]) of every packed slot,
+    decoded from the plan as the kernel decodes it; 0 at padding slots.
+    Built at the plain version's first call and kept on the plan."""
+    if plan.columns is None:
+        n_cp = plan.group.n_cp
+        cols = torch.zeros(plan.n_packed, dtype=torch.int64,
+                           device=plan.rows.device)
+        for q0, q1 in _row_chunks(plan):
+            slot, pd, bit, code, r = _entries(plan, q0, q1)
+            cols[slot] = (plan.chan_pb[pd, bit].long() * n_cp + r
+                          + plan.dk[code].long())
+        plan.columns = cols
+    return plan.columns
+
+
+def group_mv_packed_plain(packed: torch.Tensor, xw: torch.Tensor,
+                          plan: PackPlan, out: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the kernel over the same plan: the
+    products of every packed slot, then, slot by slot, each row's sum in
+    the row's order (the products of padding slots are zeros)."""
+    v = plan.vec
+    prod = packed * xw.reshape(-1)[packed_columns(plan)]
+    acc = torch.zeros(plan.rows.numel(), dtype=prod.dtype,
+                      device=prod.device)
+    p = plan.ptr_host
+    for m in range(plan.n_groups):
+        blk = prod[p[m]:p[m + 1]].view(-1, v)
+        for t in range(v):
+            acc[:blk.shape[0]] += blk[:, t]
+    rows = plan.rows.long()
+    real = rows >= 0
+    out.view(-1)[rows[real]] = acc[real]
+    return out
+
+
+def group_mv(packed: torch.Tensor, xw: torch.Tensor, plan: PackPlan,
              out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """y [C, n_cp] for one dense group.  ``vals``: the whole storage
-    vector [n_storage]; ``xw``: the group's slice of x as [C, n_cp];
-    ``out``: optional contiguous [C, n_cp] destination (not aliasing
-    xw or vals)."""
-    C, n_cp, n_off = group.n_vars, group.n_cp, group.n_off
-    G = len(group.units)
-    n_slab = G * n_off * n_cp
-    if vals.dim() != 1 or vals.shape[0] < group.base + n_slab:
-        raise ValueError(f"vals {tuple(vals.shape)} does not hold the "
-                         f"group's {n_slab} values at {group.base}")
+    """y [C, n_cp] of one dense group.  ``packed``: the group's values
+    gathered through ``plan`` (``pack``); ``xw``: the group's slice of x
+    as [C, n_cp]; ``out``: optional contiguous [C, n_cp] destination (not
+    aliasing xw or packed)."""
+    grp = plan.group
+    C, n_cp = grp.n_vars, grp.n_cp
+    if xw.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"group_mv runs on cuda or cpu, not {xw.device}")
+    if tuple(packed.shape) != (plan.n_packed,):
+        raise ValueError(f"packed {tuple(packed.shape)} != "
+                         f"({plan.n_packed},)")
     if tuple(xw.shape) != (C, n_cp):
         raise ValueError(f"x window {tuple(xw.shape)} != {(C, n_cp)}")
     if out is None:
         out = torch.empty((C, n_cp), dtype=xw.dtype, device=xw.device)
     elif tuple(out.shape) != (C, n_cp):
         raise ValueError(f"out {tuple(out.shape)} != {(C, n_cp)}")
-    if not (vals.dtype == xw.dtype == out.dtype):
-        raise TypeError(f"dtype mismatch: vals {vals.dtype}, x {xw.dtype}, "
-                        f"out {out.dtype}")
-    if not (vals.device == xw.device == out.device):
-        raise ValueError("vals, x and out must lie on one device")
-    if not (vals.is_contiguous() and xw.is_contiguous()
+    if not (packed.dtype == xw.dtype == out.dtype):
+        raise TypeError(f"dtype mismatch: packed {packed.dtype}, x "
+                        f"{xw.dtype}, out {out.dtype}")
+    if plan.vec * packed.element_size() != VEC_BYTES:
+        raise TypeError(f"a plan of {plan.vec} slots per load does not "
+                        f"fit {packed.dtype}")
+    if not (packed.device == xw.device == out.device == plan.rows.device):
+        raise ValueError("packed, x, out and the plan must lie on one "
+                         "device")
+    if not (packed.is_contiguous() and xw.is_contiguous()
             and out.is_contiguous()):
         raise ValueError("group_mv needs contiguous tensors")
-    slab = vals[group.base:group.base + n_slab]
     if xw.device.type == "cpu":
-        return group_mv_plain(slab.view(G, n_off, n_cp), xw, group, out)
-    if xw.device.type != "cuda":
-        raise ValueError(f"group_mv runs on cuda or cpu, not {xw.device}")
+        return group_mv_packed_plain(packed, xw, plan, out)
     if xw.dtype == torch.float64:
-        fn = load_library().offset_spmv_f64
+        fn = load_library().offset_spmv_packed_f64
     elif xw.dtype == torch.float32:
-        fn = load_library().offset_spmv_f32
+        fn = load_library().offset_spmv_packed_f32
     else:
         raise TypeError(f"group_mv supports float32/float64, not {xw.dtype}")
-    units, offs = _tables(group, xw.device)
     with torch.cuda.device(xw.device):
         # the launch runs in the current device's context
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(slab.data_ptr(), xw.data_ptr(), out.data_ptr(),
-                 units.data_ptr(), offs.data_ptr(), G, n_off, C, n_cp,
-                 stream)
+        err = fn(packed.data_ptr(), xw.data_ptr(), out.data_ptr(),
+                 plan.rows.data_ptr(), plan.meta.data_ptr(),
+                 plan.codes.data_ptr(), plan.list_len.data_ptr(),
+                 plan.ptr.data_ptr(), plan.dk.data_ptr(),
+                 plan.chan_pb.data_ptr(), plan.n_slices, plan.n_groups,
+                 grp.n_off, plan.maxu, C, n_cp, plan.words, stream)
     if err != 0:
         raise RuntimeError(f"offset_spmv kernel launch failed: CUDA error "
                            f"{err}")
