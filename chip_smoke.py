@@ -15,8 +15,12 @@ from the root of the repository.  Phases, one line or more each:
    packed bytes, whole storage), a CSR library product, the pack plan's
    build time and the pack's cost;
 4. the gather probe (``metafem_torch.benchmarks.gather_probe``) at the
-   TPU probe's two sizes: both variants (or the refused shared window),
-   bitwise parity, times, M gathers/s, bound and ``torch.index_select``;
+   TPU probe's two sizes and the main path's counts (x of the 3D bar,
+   541,059 values, read 89,057,289 times at uniform random): the
+   device-memory variant and the cluster window at every cluster size
+   tried, each bitwise equal to ``torch.take``, with times, M gathers/s,
+   the launch floor, the bytes bound and ``torch.index_select``; the 3D
+   phase runs both on the tangent's own read stream;
 5. the README thermal Newton step at nel=(400,200) (321,201 DOF, f64)
    with the FEATool check and a bitwise repeat;
 6. the ``bench.py`` flagship through ``metafem_torch.bench`` at
@@ -331,11 +335,34 @@ def phase_slice(device, nel=NEL) -> dict:
             "setup_s": t1 - t0, "step_s": t2 - t1, "repeat_s": repeat_s}
 
 
+def _check_gather_rows(rows, refusable) -> None:
+    """Every row of the gather probe bitwise equal to ``torch.take``; a
+    refusal only of the window and only at a shape ``refusable`` admits,
+    with the card's reason printed."""
+    for r in rows:
+        size = (r["n_win"], r["n_idx"])
+        if "error" in r:
+            if not refusable(size) or r["variant"] != "window" or \
+                    not r["error"]:
+                raise AssertionError(f"unexpected gather refusal: {r}")
+            print(f"[gather] window k={r['cluster']} at {size} "
+                  f"({r['indices']}) refused by the card: {r['error']}")
+        elif r["max_abs_err"] != 0.0:
+            raise AssertionError(f"gather differs from torch.take: {r}")
+    if not any(r["variant"] == "global" and "ms" in r for r in rows):
+        raise AssertionError(f"no device-memory gather ran: {rows}")
+
+
 def phase_gather(device) -> dict:
     """The gather probe's own entry point (``gather_probe.run``) with its
-    launch count set to 0 before and read after; each variant bitwise
-    equal to the plain version, or the window refused above the
-    shared-memory limit."""
+    launch count set to 0 before and read after: every size with the
+    device-memory variant and the window at each cluster size tried, each
+    bitwise equal to the plain version.  Only the main path's window may
+    be refused, and only with the card's reason.  The kernel line's
+    numbers are the window's at the TPU probe's first size (its fastest
+    cluster), as in earlier versions; the main path's rows stand apart
+    (``main_path``, to which the 3D phase adds the tangent's own read
+    stream)."""
     from metafem_torch.benchmarks import gather_probe
     t0 = time.perf_counter()
     gather_probe.gather.launches = 0
@@ -343,18 +370,32 @@ def phase_gather(device) -> dict:
     launches = gather_probe.gather.launches
     if launches <= 0:
         raise AssertionError("the gather probe launched no kernel")
-    ran = [r for r in rows if "ms" in r]
-    refused = [r for r in rows if "error" in r]
-    if len(ran) < 3 or [(r["n_win"], r["variant"]) for r in refused] \
-            not in ([], [(65536, "window")]):
-        raise AssertionError(f"unexpected gather probe rows: {rows}")
-    first = next(r for r in ran if r["variant"] == "window")
-    print(f"[gather] {launches} launches, {time.perf_counter() - t0:.1f} s")
-    return {"launches": launches, "rows": rows, "ms": first["ms"],
-            "plain_ms": first["plain_ms"], "library_ms": first["library_ms"],
-            "bound_ms": first["bound_ms"],
-            "max_abs_err": max(r["max_abs_err"] for r in ran),
-            "shape": (first["n_win"], first["n_idx"])}
+    main_size = gather_probe.MAIN_PATH_SIZE
+    _check_gather_rows(rows, lambda size: size == main_size)
+    for size in gather_probe.TPU_SIZES:
+        got = {r["variant"] for r in rows
+               if (r["n_win"], r["n_idx"]) == size and "ms" in r}
+        if got != set(gather_probe.VARIANTS):
+            raise AssertionError(f"gather probe rows missing at {size}: "
+                                 f"{rows}")
+    first = gather_probe.TPU_SIZES[0]
+    top = next(r for r in rows if (r["n_win"], r["n_idx"]) == first
+               and r.get("chosen"))
+    main = [r for r in rows if (r["n_win"], r["n_idx"]) == main_size]
+    chosen = {f"{r['n_win']}x{r['n_idx']}": r["cluster"]
+              for r in rows if r.get("chosen")}
+    floor = rows[0]["floor_ms"]
+    print(f"[gather] {launches} launches, floor {floor * 1e3:.3f} us, "
+          f"fastest window cluster per size {chosen}, window at {first} "
+          f"{top['ms'] * 1e3:.3f} us, index_select "
+          f"{top['library_ms'] * 1e3:.3f} us, "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {"launches": launches, "rows": rows, "ms": top["ms"],
+            "plain_ms": top["plain_ms"], "library_ms": top["library_ms"],
+            "bound_ms": top["bound_ms"], "floor_ms": floor,
+            "max_abs_err": max(r["max_abs_err"] for r in rows if "ms" in r),
+            "shape": first, "cluster": top["cluster"],
+            "chosen_cluster": chosen, "main_path": main}
 
 
 def _time_cold_ms(fn, device, reps: int = 20) -> float:
@@ -693,6 +734,8 @@ def phase_3d(device, e_number=E3D) -> dict:
     spmv64 = _spmv_at_size(A, rng, device, "tangent", tag="3d")
     A32 = OffsetMatrix.from_values(A.vals.float(), lo)
     spmv32 = _spmv_at_size(A32, rng, device, "tangent", tag="3d")
+    gather = _gather_stream(A32, mesh, device) if device.type == "cuda" \
+        else []
     del A32
     if not spmv64["rel"] <= 1e-14:
         raise AssertionError(f"f64 kernel disagrees: {spmv64['rel']}")
@@ -822,7 +865,27 @@ def phase_3d(device, e_number=E3D) -> dict:
             "launches": launches1 + launches2, "launches1": launches1,
             "launches2": launches2, "step1_s": step1_s,
             "step2_s": step2_s, "iters1": its1, "peak_bytes": peak,
-            "spmv64": spmv64, "spmv32": spmv32, "profile": profile}
+            "spmv64": spmv64, "spmv32": spmv32, "profile": profile,
+            "gather": gather}
+
+
+def _gather_stream(A, mesh, device) -> list:
+    """The gather probe on the tangent's own x reads (``spmv_stream`` of
+    its f32 pack plan: the occupied DOF, in the packed kernel's order),
+    both variants, each bitwise equal to ``torch.take``; a window the
+    card refuses only with its reason."""
+    from metafem_torch.benchmarks import gather_probe
+    (plan,) = A.pack_plans()
+    occupied = torch.as_tensor(np.asarray(mesh.is_occupied, bool),
+                               device=device)
+    n_win, idx = gather_probe.spmv_stream(plan, occupied)
+    x, _ = gather_probe.probe_inputs(n_win, 0, device)
+    floor = gather_probe.launch_floor_ms(device)
+    rows = gather_probe.probe_rows(x, idx, floor, indices="tangent")
+    _check_gather_rows(rows, lambda size: True)
+    del x, idx
+    torch.cuda.empty_cache()
+    return rows
 
 
 def main() -> None:
@@ -891,7 +954,12 @@ def main() -> None:
         "ms": gat["ms"], "plain_ms": gat["plain_ms"],
         "bound_ms": gat["bound_ms"], "bound_by": "bytes",
         "library_ms": gat["library_ms"], "shape": gat["shape"],
-        "variant": "window",
+        "variant": "window", "cluster": gat["cluster"],
+        "floor_ms": gat["floor_ms"],
+        "chosen_cluster": gat["chosen_cluster"],
+        # the main path's counts with uniform indices, then the 3D
+        # tangent's own read stream
+        "main_path": gat["main_path"] + p3d["gather"],
         "rows": gat["rows"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
