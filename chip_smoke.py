@@ -38,9 +38,21 @@ from the root of the repository.  Phases, one line or more each:
    ``update_one_step`` (its iterations beside the dense kernel's) and
    load step 2 through ``update_one_step_jit`` (residual below 1e-5,
    d1/L within 2% of the analytic curve), peak device memory;
-8. the ``kernels`` JSON line, then the device JSON line last.
+8. the multi-field and history-variable paths: ``thermal_elasticity_3d``
+   (temperature and displacement, C=4) at nel=(60,24,24) (595,300 DOF,
+   one dense group of 117 offsets, f64): the SpMV's parity and time on
+   its tangent in f64 and f32, the example's BiCGStab(4) solve twice
+   (bitwise equal), three steps of dt=1 each below 1e-6; the same bar at
+   e_number=1 stepped to steady state with the reference test's bending
+   bars; ``cavity_2d`` (velocity and pressure, C=3) at 40 x 40, Re 100
+   and Re 1000 each within 0.02 of Ghia et al.'s centreline minimum,
+   and the SpMV on its tangent; ``j2_plasticity``'s mixed-hardening
+   sequence within 1.5e-3 of the analytic elongations, its history on
+   the card;
+9. the ``kernels`` JSON line, then the device JSON line last.
 
-Each path (gather probe, README step, flagship, each 3D load step) runs
+Each path (gather probe, README step, flagship, each 3D load step, each
+thermo-elastic step, each cavity Reynolds number) runs
 with the kernels' launch counts set to 0 just before it and read just
 after; every path must have launched its kernel.  Every failure raises
 and exits non-zero.
@@ -85,6 +97,13 @@ PROF_ITERS = 40
 #: of earlier versions (its chip runs on an H100); the packed kernel adds
 #: the same products in the same order, so it should repeat them
 DENSE_KERNEL_ITERS = (708, 696, 648)
+#: the multi-field paths: thermal_elasticity_3d at nel=(60,24,24),
+#: 595,300 DOF, and at e_number=1 to steady state; cavity_2d at 40 x 40
+#: (the reference's own resolution); j2_plasticity at nel=(5,2,2)
+TE_E = 24
+TE_STEADY_E = 1
+CAVITY_E = 40
+J2_E = 2
 #: the numbers of each SpMV operator in the kernels line
 SPMV_KEYS = ("ms", "cold_ms", "plain_ms", "library_ms", "bound_ms",
              "packed_bound_ms", "storage_bound_ms", "pack_ms", "plan_build_s",
@@ -682,6 +701,61 @@ def phase_flagship(device, nel=FLAGSHIP_NEL) -> dict:
             "spmv32": spmv32, "spmv64": spmv64}
 
 
+def _solve_twice(dom, A, residue, device) -> tuple:
+    """The domain's linear solver on (A, residue) twice from one state:
+    the two solutions must be equal bit for bit.  Returns the first
+    solve's passes (iterations, true residual) and its seconds; the
+    passes stay out of ``dom.solve_log``."""
+    n_log = len(dom.solve_log)
+    xs = []
+    for _ in range(2):
+        t = time.perf_counter()
+        xs.append(dom.linear_solver(A, residue))
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    solve_s = time.perf_counter() - t
+    rep_log = dom.solve_log[n_log:]
+    del dom.solve_log[n_log:]
+    if not torch.equal(xs[0], xs[1]):
+        raise AssertionError("two solves of one tangent differ")
+    return ([(it, float(f"{r:.3e}")) for it, r in rep_log[:len(rep_log) // 2]],
+            solve_s)
+
+
+def _cycle_profile(As, residue, device, tag) -> dict:
+    """Where a BiCGStab(4) cycle's time goes on the right-Jacobi scaled
+    matrix ``As``: PROF_ITERS iterations (tol 0, so all of them run)
+    under the profiler and timed alone on the host clock; {} off the
+    card."""
+    from metafem_torch.linsolve import krylov
+    if device.type != "cuda":
+        return {}
+
+    def cycles():
+        return krylov.bicgstabl(As, residue, tol=0.0, maxiter=PROF_ITERS,
+                                s=4)
+    n_launch, kernels = _kernel_profile(cycles, device)
+    torch.cuda.synchronize(device)
+    t = time.perf_counter()
+    cycles()
+    torch.cuda.synchronize(device)
+    wall_ms = (time.perf_counter() - t) * 1e3
+    n_cyc = PROF_ITERS // 4
+    busy = sum(kernels.values())
+    spmv = sum(v for k, v in kernels.items() if "offset_spmv" in k)
+    print(f"[{tag}] BiCGStab(4) cycle ({n_cyc} cycles, torch.profiler "
+          f"and host clock): {wall_ms / n_cyc:.3f} ms wall, device "
+          f"busy {busy / n_cyc:.3f} ms (idle share "
+          f"{1 - busy / wall_ms:.1%}), of it the SpMV kernel "
+          f"{spmv / n_cyc:.3f} ms ({spmv / max(busy, 1e-12):.1%} of the "
+          f"busy time); {(n_launch or 0) / n_cyc:.1f} kernel launches "
+          f"per cycle")
+    return {"wall_ms_per_cycle": wall_ms / n_cyc,
+            "busy_ms_per_cycle": busy / n_cyc,
+            "spmv_ms_per_cycle": spmv / n_cyc,
+            "launches_per_cycle": (n_launch or 0) / n_cyc}
+
+
 def phase_3d(device, e_number=E3D) -> dict:
     """The Neo-Hookean bar of ``metafem_torch.examples.hyperelastic_3d``
     at nel=(10e, e, e) in float64, the example's own configuration
@@ -743,50 +817,13 @@ def phase_3d(device, e_number=E3D) -> dict:
         raise AssertionError(f"f32 kernel disagrees: {spmv32['rel']}")
     # the example's own solve (right-Jacobi BiCGStab(4) passes to the
     # example's tolerance) on this tangent, twice from one state
-    n_log = len(dom.solve_log)
-    xs = []
-    for _ in range(2):
-        t = time.perf_counter()
-        xs.append(dom.linear_solver(A, residue))
-        sync()
-    rep_log = dom.solve_log[n_log:]
-    del dom.solve_log[n_log:]
-    if not torch.equal(xs[0], xs[1]):
-        raise AssertionError("two solves of one tangent differ")
+    rep_log, solve_s = _solve_twice(dom, A, residue, device)
     print(f"[3d] the example's solve of the first Newton tangent, twice: "
-          f"passes (iterations, true residual) "
-          f"{[(it, float(f'{r:.3e}')) for it, r in rep_log[:len(rep_log) // 2]]}"
-          f", x bitwise equal ({time.perf_counter() - t:.2f} s each)")
-    del xs
+          f"passes (iterations, true residual) {rep_log}, x bitwise equal "
+          f"({solve_s:.2f} s each)")
     As, _ = pr_jacobi(A)
     del A
-    profile = {}
-    if device.type == "cuda":
-        # where a BiCGStab(4) cycle's time goes: PROF_ITERS iterations
-        # (tol 0, so all of them run) under the profiler and timed alone
-        def cycles():
-            return krylov.bicgstabl(As, residue, tol=0.0,
-                                    maxiter=PROF_ITERS, s=4)
-        n_launch, kernels = _kernel_profile(cycles, device)
-        sync()
-        t = time.perf_counter()
-        cycles()
-        sync()
-        wall_ms = (time.perf_counter() - t) * 1e3
-        n_cyc = PROF_ITERS // 4
-        busy = sum(kernels.values())
-        spmv = sum(v for k, v in kernels.items() if "offset_spmv" in k)
-        profile = {"wall_ms_per_cycle": wall_ms / n_cyc,
-                   "busy_ms_per_cycle": busy / n_cyc,
-                   "spmv_ms_per_cycle": spmv / n_cyc,
-                   "launches_per_cycle": (n_launch or 0) / n_cyc}
-        print(f"[3d] BiCGStab(4) cycle ({n_cyc} cycles, torch.profiler "
-              f"and host clock): {wall_ms / n_cyc:.3f} ms wall, device "
-              f"busy {busy / n_cyc:.3f} ms (idle share "
-              f"{1 - busy / wall_ms:.1%}), of it the SpMV kernel "
-              f"{spmv / n_cyc:.3f} ms ({spmv / max(busy, 1e-12):.1%} of the "
-              f"busy time); {(n_launch or 0) / n_cyc:.1f} kernel launches "
-              f"per cycle")
+    profile = _cycle_profile(As, residue, device, "3d")
     del As, residue
 
     # load step 1: update_one_step, assembly and solves timed apart
@@ -888,6 +925,272 @@ def _gather_stream(A, mesh, device) -> list:
     return rows
 
 
+def _te_path(device, e_number) -> dict:
+    """``thermal_elasticity_3d`` at nel=(10e/4, e, e) in float64 with the
+    example's solver (right-Jacobi BiCGStab(4), maxiter 2000, 20 passes,
+    converge_tol 1e-6): the SpMV's parity and time on the first step's
+    tangent in f64 and f32, the example's solve of that tangent twice
+    (bitwise equal), then three steps of dt=1 through ``run_steps``
+    (``update_one_step(max_iter=3)``), each below 1e-6, with the SpMV's
+    launch count set to 0 before them and read after."""
+    from metafem_torch.examples import thermal_elasticity_3d as te
+    from metafem_torch.linsolve import offset_spmv
+    from metafem_torch.linsolve.block_offset import OffsetMatrix
+    from metafem_torch.linsolve.precond import pr_jacobi
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    dom, wp = te.build(e_number=e_number, device=device)
+    sync()
+    setup_s = time.perf_counter() - t0
+    lo = dom.pattern.offset_layout
+    if lo.n_coo or len(lo.pallas_groups) != 1:
+        raise AssertionError(f"thermo-elastic layout is not one dense "
+                             f"group: {lo.n_coo} COO, {lo.pallas_groups}")
+    (grp,) = lo.pallas_groups
+    G, n_off, C, n_cp = len(grp.units), grp.n_off, grp.n_vars, grp.n_cp
+    mesh = dom.workpieces[wp].mesh
+    dof = C * int(mesh.is_occupied.sum())
+    if (n_off, C) != (117, 4):
+        raise AssertionError(f"unexpected thermo-elastic group: G={G}, "
+                             f"n_off={n_off}, C={C}")
+    te.heat_front(dom, wp)
+    A, residue = dom.assemble_tangent()
+    rng = np.random.default_rng(20261017)
+    spmv64 = _spmv_at_size(A, rng, device, "thermo-elastic tangent",
+                           tag="multifield")
+    A32 = OffsetMatrix.from_values(A.vals.float(), lo)
+    spmv32 = _spmv_at_size(A32, rng, device, "thermo-elastic tangent",
+                           tag="multifield")
+    del A32
+    if not spmv64["rel"] <= 1e-14:
+        raise AssertionError(f"f64 kernel disagrees: {spmv64['rel']}")
+    if not spmv32["rel"] <= 1e-6:
+        raise AssertionError(f"f32 kernel disagrees: {spmv32['rel']}")
+    print(f"[multifield] thermal_elasticity_3d e_number={e_number} nel="
+          f"{(10 * e_number // 4, e_number, e_number)} lattice "
+          f"{mesh.lattice_shape}: occupied control points "
+          f"{int(mesh.is_occupied.sum())}, DOF {dof}, n_cp {n_cp}, G={G}, "
+          f"n_off={n_off}, C={C}, units {list(grp.units)}, structural "
+          f"entries {spmv64['nnz']}, stored values {lo.n_storage} = "
+          f"{lo.n_storage * 8 / 1e9:.3f} GB per float64 tangent; setup "
+          f"{setup_s:.2f} s")
+    rep_log, solve_s = _solve_twice(dom, A, residue, device)
+    print(f"[multifield] the example's solve of the first tangent, twice: "
+          f"passes (iterations, true residual) {rep_log}, x bitwise equal "
+          f"({solve_s:.2f} s each)")
+    As, _ = pr_jacobi(A)
+    del A
+    profile = _cycle_profile(As, residue, device, "multifield")
+    del As, residue
+
+    steps = []
+    for k in range(3):
+        n_log = len(dom.solve_log)
+        offset_spmv.reset_launches()
+        t = time.perf_counter()
+        (res,) = te.run_steps(dom, wp, 1)
+        sync()
+        wall = time.perf_counter() - t
+        launches = offset_spmv.group_mv.launches
+        its = [it for it, _ in dom.solve_log[n_log:]]
+        steps.append({"residual": res, "s": wall, "launches": launches,
+                      "iters": its})
+        print(f"[multifield] thermo-elastic step {k + 1} (dt=1, "
+              f"update_one_step(max_iter=3)): final residual {res:.3e}, "
+              f"{wall:.2f} s, BiCGStab(4) iterations per solve {its}, "
+              f"offset_spmv launches {launches}")
+        if not res < 1e-6:
+            raise AssertionError(f"thermo-elastic step {k + 1} did not "
+                                 f"converge: {res}")
+        if device.type == "cuda" and launches <= 0:
+            raise AssertionError("the thermo-elastic step launched no SpMV "
+                                 "kernel")
+    for name in ("T", "d1", "d2", "d3", "T_t", "d2_t"):
+        if not np.isfinite(mesh.fields[name]).all():
+            raise AssertionError(f"thermo-elastic field {name} not finite")
+    peak = (torch.cuda.max_memory_allocated(device)
+            if device.type == "cuda" else 0)
+    print(f"[multifield] thermo-elastic T range [{mesh.fields['T'].min():.3f}"
+          f", {mesh.fields['T'].max():.3f}], max|d2| "
+          f"{np.abs(mesh.fields['d2']).max():.3e} after 3 steps; peak device "
+          f"memory {peak / 2 ** 30:.2f} GiB (torch.cuda.max_memory_allocated)")
+    return {"G": G, "n_off": n_off, "C": C, "n_cp": n_cp, "dof": dof,
+            "e_number": e_number, "setup_s": setup_s, "steps": steps,
+            "profile": profile,
+            "launches": sum(s["launches"] for s in steps),
+            "peak_bytes": peak, "spmv64": spmv64, "spmv32": spmv32}
+
+
+def _te_steady(device, e_number) -> dict:
+    """``run_to_steady`` of the thermo-elastic bar with the bars of the
+    reference's test: fewer than 120 steps, tip d2 above 0.01, curvature
+    within 25% of alpha dT / h."""
+    from metafem_torch.examples import thermal_elasticity_3d as te
+    from metafem_torch.linsolve import offset_spmv
+    t = time.perf_counter()
+    dom, wp = te.build(e_number=e_number, device=device)
+    n_dense = len(dom.pattern.offset_layout.pallas_groups)
+    offset_spmv.reset_launches()
+    steps = te.run_to_steady(dom, wp)
+    launches = offset_spmv.group_mv.launches
+    d2_tip, kappa, kappa_th = te.bending(dom, wp)
+    rel = abs(kappa - kappa_th) / abs(kappa_th)
+    wall = time.perf_counter() - t
+    print(f"[multifield] thermo-elastic steady state at e_number="
+          f"{e_number}: {steps} steps, tip d2 {d2_tip:.4f}, curvature "
+          f"{kappa:.4e} against alpha dT / h {kappa_th:.4e} ({rel:.1%} off); "
+          f"offset_spmv launches {launches} ({n_dense} dense groups; "
+          f"the rest is the COO tail); {wall:.1f} s")
+    if not (steps < 120 and d2_tip > 0.01 and rel < 0.25):
+        raise AssertionError(f"thermo-elastic steady state: {steps} steps, "
+                             f"d2_tip {d2_tip}, curvature off by {rel}")
+    return {"steps": steps, "d2_tip": d2_tip, "curvature_rel_err": rel,
+            "s": wall}
+
+
+def _cavity_path(device, e_number) -> dict:
+    """``cavity_2d`` at e_number x e_number (the reference's own
+    resolution at 40): Re 100 and Re 1000 through ``run_re`` with
+    right-Jacobi BiCGStab(4), each continuation step below 1e-5, the
+    centreline minimum of u/U within 0.02 of Ghia et al.'s; then the SpMV
+    on the converged Re 1000 tangent (C=3) in f64 and f32."""
+    from metafem_torch.examples import cavity_2d as cv
+    from metafem_torch.linsolve import offset_spmv
+    from metafem_torch.linsolve.block_offset import OffsetMatrix
+    from metafem_torch.linsolve.precond import pr_jacobi
+    t0 = time.perf_counter()
+    dom, _, wp, params = cv.build(e_number=e_number, device=device)
+    setup_s = time.perf_counter() - t0
+    lo = dom.pattern.offset_layout
+    if lo.n_coo or len(lo.pallas_groups) != 1:
+        raise AssertionError(f"cavity layout is not one dense group: "
+                             f"{lo.n_coo} COO, {lo.pallas_groups}")
+    (grp,) = lo.pallas_groups
+    mesh = dom.workpieces[wp].mesh
+    dof = grp.n_vars * int(mesh.is_occupied.sum())
+    out = {"G": len(grp.units), "n_off": grp.n_off, "C": grp.n_vars,
+           "n_cp": grp.n_cp, "dof": dof, "setup_s": setup_s, "re": {}}
+    print(f"[multifield] cavity_2d e_number={e_number}: lattice "
+          f"{mesh.lattice_shape}, occupied control points "
+          f"{int(mesh.is_occupied.sum())}, DOF {dof}, G={out['G']}, "
+          f"n_off={grp.n_off}, C={grp.n_vars}; setup {setup_s:.2f} s")
+    if grp.n_vars != 3:
+        raise AssertionError(f"cavity group is not C=3: {grp}")
+    for Re in (100, 1000):
+        n_log = len(dom.solve_log)
+        res = []
+        offset_spmv.reset_launches()
+        t = time.perf_counter()
+        u_st = cv.run_re(dom, wp, Re, params, solver="bicgstabl",
+                         residuals=res)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t
+        launches = offset_spmv.group_mv.launches
+        ys, us = cv.centerline_u(dom, wp, u_st, params)
+        i_min = int(np.argmin(us))
+        g_min, g_y = cv.GHIA_MIN[Re]
+        its = [it for it, _ in dom.solve_log[n_log:]]
+        print(f"[multifield] cavity Re {Re}: {len(res)} continuation steps, "
+              f"final residuals {[float(f'{r:.3e}') for r in res]}, "
+              f"centreline min u/U {us[i_min]:.5f} at y {ys[i_min]:.4f} "
+              f"(Ghia et al. {g_min} at {g_y}; off by "
+              f"{abs(us[i_min] - g_min):.5f}); BiCGStab(4) iterations "
+              f"{sum(its)} over {len(its)} passes; offset_spmv launches "
+              f"{launches}; {wall:.2f} s")
+        if not all(r < 1e-5 for r in res):
+            raise AssertionError(f"cavity Re {Re}: residuals {res}")
+        if not abs(us[i_min] - g_min) < 0.02:
+            raise AssertionError(f"cavity Re {Re}: centreline minimum "
+                                 f"{us[i_min]} against {g_min}")
+        if not np.isfinite(mesh.fields["p"]).all():
+            raise AssertionError(f"cavity Re {Re}: pressure not finite")
+        if device.type == "cuda" and launches <= 0:
+            raise AssertionError(f"cavity Re {Re} launched no SpMV kernel")
+        out["re"][Re] = {"u_min": float(us[i_min]), "y_min": float(ys[i_min]),
+                         "residuals": res, "s": wall, "launches": launches,
+                         "iters": sum(its)}
+    A, residue = dom.assemble_tangent()
+    out["profile"] = _cycle_profile(pr_jacobi(A)[0], residue, device,
+                                    "multifield")
+    rng = np.random.default_rng(20261017)
+    spmv64 = _spmv_at_size(A, rng, device, "cavity Re 1000 tangent",
+                           tag="multifield")
+    spmv32 = _spmv_at_size(OffsetMatrix.from_values(A.vals.float(), lo),
+                           rng, device, "cavity Re 1000 tangent",
+                           tag="multifield")
+    if not spmv64["rel"] <= 1e-14:
+        raise AssertionError(f"f64 kernel disagrees: {spmv64['rel']}")
+    if not spmv32["rel"] <= 1e-6:
+        raise AssertionError(f"f32 kernel disagrees: {spmv32['rel']}")
+    out.update(spmv64=spmv64, spmv32=spmv32,
+               launches=sum(r["launches"] for r in out["re"].values()))
+    return out
+
+
+def _j2_path(device, e_number) -> dict:
+    """``j2_plasticity``'s mixed-hardening sequence (``SEQUENCES[1]``)
+    against the analytic elongations at atol 1.5e-3: the return map, the
+    history and ``evaluate_at_itg`` on the card, the LU solves on the
+    host, as in the reference; and the time of one ``commit_history``."""
+    from metafem_torch.examples import j2_plasticity as j2
+    t = time.perf_counter()
+    dom, wp, p = j2.build(e_number=e_number, device=device)
+    grp = j2.SEQUENCES[1]
+    d1s = j2.run_load_sequence(dom, wp, p, grp["s"], Y_initial=100,
+                               Eb=grp["Eb"], Ep=grp["Ep"])
+    wall = time.perf_counter() - t
+    err = float(np.abs(d1s - grp["d1"]).max())
+    on_device = all(v.device == device for v in dom.user_state.values()
+                    if torch.is_tensor(v))
+    commit_ms = []
+    for _ in range(5):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t = time.perf_counter()
+        j2.commit_history(dom, wp, p)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        commit_ms.append(1e3 * (time.perf_counter() - t))
+    print(f"[multifield] j2_plasticity e_number={e_number}, mixed hardening "
+          f"(Eb={grp['Eb']:g}, Ep={grp['Ep']:g}), {len(d1s)} load levels: "
+          f"max |d1 - analytic| {err:.3e} (bar 1.5e-3); history on "
+          f"{device if on_device else 'the host'}; commit_history "
+          f"{np.median(commit_ms):.3f} ms (median of 5, synchronised); "
+          f"{wall:.2f} s")
+    if not err < 1.5e-3:
+        raise AssertionError(f"J2 mixed sequence off by {err}")
+    if not on_device:
+        raise AssertionError("the J2 history left the device")
+    return {"max_err": err, "commit_ms": float(np.median(commit_ms)),
+            "s": wall}
+
+
+def phase_multifield(device, te_e=TE_E, steady_e=TE_STEADY_E,
+                     cavity_e=CAVITY_E, j2_e=J2_E) -> dict:
+    """The multi-field and history-variable paths: thermo-elasticity at
+    full size (``_te_path``) and to steady state (``_te_steady``), the
+    lid-driven cavity (``_cavity_path``) and J2 plasticity
+    (``_j2_path``)."""
+    t0 = time.perf_counter()
+    out = {"te": _te_path(device, te_e)}
+    out["te"]["s"] = time.perf_counter() - t0
+    out["steady"] = _te_steady(device, steady_e)
+    out["cavity"] = _cavity_path(device, cavity_e)
+    out["j2"] = _j2_path(device, j2_e)
+    print(f"[multifield] phase {time.perf_counter() - t0:.1f} s "
+          f"(thermo-elastic full size {out['te']['s']:.1f} s)")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: CUDA is not available")
@@ -907,12 +1210,21 @@ def main() -> None:
     sl = run("slice", phase_slice)
     flag = run("flagship", phase_flagship)
     p3d = run("3d", phase_3d)
+    mfp = run("multifield", phase_multifield)
     print("[time] " + ", ".join(f"{k} {v:.2f} s" for k, v in times.items())
           + f", total {time.perf_counter() - t_start:.2f} s on {env['smi']}")
     s32 = flag["spmv32"]
 
     def numbers(t):
         return {k: t[k] for k in SPMV_KEYS}
+
+    def multifield_numbers(p):
+        return {**numbers(p["spmv64"]),
+                "max_rel_err_f64": p["spmv64"]["rel"],
+                "max_rel_err_f32": p["spmv32"]["rel"],
+                "G": p["G"], "n_off": p["n_off"], "C": p["C"],
+                "dof": p["dof"], "launches": p["launches"],
+                "f32": numbers(p["spmv32"])}
     print(json.dumps({"kernels": [{
         "name": "offset_spmv", "route": "cuda",
         "source": "metafem_torch/csrc/offset_spmv.cu",
@@ -943,10 +1255,16 @@ def main() -> None:
             "G": p3d["G"], "n_off": p3d["n_off"], "C": p3d["C"],
             "n_cp": p3d["n_cp"], "dof": p3d["dof"],
             "f32": numbers(p3d["spmv32"])},
+        "thermal_elasticity_3d": multifield_numbers(mfp["te"]),
+        "cavity_2d": multifield_numbers(mfp["cavity"]),
         "max_rel_err_f64": max(kern["max_rel_err_f64"], flag["spmv64"]["rel"],
-                               p3d["spmv64"]["rel"]),
+                               p3d["spmv64"]["rel"],
+                               mfp["te"]["spmv64"]["rel"],
+                               mfp["cavity"]["spmv64"]["rel"]),
         "max_rel_err_f32": max(kern["max_rel_err_f32"], s32["rel"],
-                               p3d["spmv32"]["rel"])}, {
+                               p3d["spmv32"]["rel"],
+                               mfp["te"]["spmv32"]["rel"],
+                               mfp["cavity"]["spmv32"]["rel"])}, {
         "name": "gather_probe", "route": "cuda",
         "source": "metafem_torch/csrc/gather_probe.cu",
         "replaces": "benchmarks/pallas_gather_probe.py:25",

@@ -14,6 +14,8 @@ TF32 switches are turned off and the matmul precision is pinned to
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -33,3 +35,24 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU")
     return dev
+
+
+def device_constant(values, dtype, device) -> torch.Tensor:
+    """A tensor of ``values`` (a number, or a sequence of numbers) in
+    ``dtype`` on ``device``, copied from the host once per (values,
+    dtype, device) and shared afterwards: the time-integration
+    parameters and weak-form constants that every step reads.  A copy
+    from pageable host memory blocks the host, and a CUDA graph cannot
+    replay it.  The values are keyed by their bits (``float.hex``), so
+    -0.0 and 0.0 stay apart.  Callers must not write into the tensor."""
+    key = (float(values).hex() if isinstance(values, (int, float))
+           else tuple(float(v).hex() for v in values))
+    return _cached_constant(key, dtype, torch.device(device))
+
+
+@functools.lru_cache(maxsize=1024)
+def _cached_constant(key, dtype, device) -> torch.Tensor:
+    values = (float.fromhex(key) if isinstance(key, str)
+              else [float.fromhex(h) for h in key])
+    return torch.tensor(values, dtype=dtype, device=device,
+                        requires_grad=False)

@@ -262,7 +262,8 @@ def make_updaters(tb: TensorTable, compiled_wps: List[CompiledWP],
     rest_cols)}}, "gather": {wp: fs_list}} — the lattice strided
     reductions and node reads, filled in by FEM_Domain.compile.  Streams
     covered by them bypass the gather maps; ``state["maps"][phase]``
-    (device gather maps, scatter.maps_to_device) reduces the rest."""
+    (device gather maps, scatter.maps_to_device, and the remaining
+    columns of split streams) reduces the rest."""
     fast_maps = fast_maps if fast_maps is not None else {}
     bfs = pattern.basicfield_size
 
@@ -312,7 +313,7 @@ def make_updaters(tb: TensorTable, compiled_wps: List[CompiledWP],
         device_maps = state["maps"][phase]
         fast = fast_maps.get(phase, {})
 
-        def reduce_streams(vals_list, fast_dict, total):
+        def reduce_streams(vals_list, fast_dict, kind, total):
             """Strided lattice adds for the fitting columns, in list
             order; returns (partial sum, flat non-fitting remainders)."""
             out = torch.zeros(total, dtype=dtype, device=dev)
@@ -327,8 +328,8 @@ def make_updaters(tb: TensorTable, compiled_wps: List[CompiledWP],
                 scan_apply_group(out, [(vf[:, fs.col], fs)
                                        for fs in fs_list])
                 if rest_cols.size:
-                    rest.append(vf[:, torch.as_tensor(rest_cols, device=dev)
-                                   ].reshape(-1))
+                    cols = device_maps["rest_cols"][kind, si]
+                    rest.append(vf[:, cols].reshape(-1))
             return out, rest
 
         def add_rest(out, rest, kind, total):
@@ -346,9 +347,10 @@ def make_updaters(tb: TensorTable, compiled_wps: List[CompiledWP],
             return out + apply_device_maps(device_maps.get(kind), data,
                                            total)
 
-        residue, rest_r = reduce_streams(r_vals, fast.get("r", {}), bfs)
+        residue, rest_r = reduce_streams(r_vals, fast.get("r", {}), "r",
+                                         bfs)
         residue = add_rest(residue, rest_r, "r", bfs)
-        K, rest_k = reduce_streams(k_vals, fast.get("k", {}),
+        K, rest_k = reduce_streams(k_vals, fast.get("k", {}), "k",
                                    pattern.n_storage)
         K = add_rest(K, rest_k, "k", pattern.n_storage)
         if phase == "lin" and state.get("ghost_diag") is not None:

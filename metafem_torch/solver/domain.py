@@ -1,6 +1,6 @@
 """FEM_Domain: the user-facing problem object of the PyTorch port.
 
-Port of the README subset of ``metafem/solver/domain.py`` (the analog of
+Port of ``metafem/solver/domain.py`` (the analog of
 MetaFEM.jl's ``FEM_Domain`` / ``WorkPiece`` / ``Physics``,
 solver/01_Types.jl): declare variables, add workpieces and boundaries,
 assign weak forms, mesh, compile, then step with a Newton loop whose
@@ -36,9 +36,14 @@ Steps in one call and other solvers:
         sv_func=krylov.bicgstabl, s=4)     # or dom.make_direct_solver()
     dom.update_one_step_jit(max_iter=7)    # make_jitted_step's host loop
 
+User callbacks and history state (the J2 example):
+
+    dom.register_function("strain_updater", fn)   # fn(*args, user=...)
+    dom.user_state = {"ep": ep0, "Y": Y0}          # moved to the device
+    e11 = dom.evaluate_at_itg(wp, dom.sym("e")[1, 1])   # [n_el, n_itg]
+
 Not ported yet: the two-float residual mode, the auxiliary-space
-multigrid, integration-point evaluation, freeze persistence and
-checkpoints.
+multigrid, freeze persistence and checkpoints.
 """
 
 from __future__ import annotations
@@ -49,7 +54,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..config import DEFAULT_DTYPE, resolve_device
+from ..config import DEFAULT_DTYPE, device_constant, resolve_device
 from ..elements.discretization import (ClassicalDiscretization,
                                        initialize_classical_element)
 from ..linsolve import krylov, multigrid
@@ -58,16 +63,21 @@ from ..linsolve.driver import iterative_solve, solver_lu
 from ..mesh.fem_mesh import WPMesh, build_wp_mesh
 from ..mesh.ref_geometry import GeoMesh
 from ..symbolics.api import SymRef, as_term
+from ..symbolics.ir import free_index
 from ..symbolics.registry import (EXTERNAL_VAR, INTEGRATION_POINT_VAR,
                                   INTERNAL_VAR, VariableRegistry)
+from ..symbolics.simplify import unroll_and_simplify
 from ..symbolics.tensor_table import TensorTable
 from ..symbolics.weakform import BilinearForm, build_weakform
-from .assembly import CompiledWP, collect_phase_streams, make_updaters
+from .assembly import (CompiledWP, _build_env, collect_phase_streams,
+                       make_updaters)
 from .geometry import update_element_geometry, update_facet_geometry
 from .global_assembly import (GlobalPattern, assemble_x, build_global_pattern,
                               dessemble_x)
 from .lattice_reduce import fit_stream_columns
-from .local_assembly import LocalAssembly, initialize_local_assembly
+from .local_assembly import (LocalAssembly, _extervar_info, _innervar_info,
+                             extract_words, initialize_local_assembly)
+from .lowering import LoweringContext
 from .scatter import build_compact_gather_reduce, maps_to_device
 from .time_domain import (GeneralAlpha, initialize_dx, normalized_norm,
                           update_dx, x_star_of)
@@ -106,8 +116,7 @@ class FEM_Domain:
         self.workpieces: List[WorkPiece] = []
         self.global_vars: Dict[str, float] = {}
         self.functions: Dict[str, Callable] = {}
-        #: user state passed to registered callbacks declaring ``user``
-        self.user_state: dict = {}
+        self._user_state: dict = {}
         self.time_discretization = GeneralAlpha()
         self.converge_tol: float = 1e-6
         self.t: float = 0.0
@@ -141,6 +150,29 @@ class FEM_Domain:
         return torch.as_tensor(np.asarray(arr), dtype=dtype or self.dtype,
                                device=self.device)
 
+    @property
+    def user_state(self) -> dict:
+        """User state passed to registered callbacks that declare a
+        ``user`` parameter (e.g. plasticity history per quadrature
+        point).  On assignment every array value (numpy or tensor)
+        becomes a tensor on the domain's device, floating arrays in the
+        domain's dtype, so no assembly copies the state from the host
+        again; other values stay as they are.  Assign a new dict to
+        change it."""
+        return self._user_state
+
+    @user_state.setter
+    def user_state(self, value: dict) -> None:
+        self._user_state = {k: self._to_device(v) for k, v in value.items()}
+
+    def _to_device(self, v):
+        if not isinstance(v, (np.ndarray, torch.Tensor)):
+            return v
+        t = torch.as_tensor(v)
+        if t.is_floating_point():
+            t = t.to(self.dtype)
+        return t.to(self.device)
+
     # ------------------------------------------------------------------
     # variable declaration (the @Sym / @External_Sym / @Def analogs)
     # ------------------------------------------------------------------
@@ -165,6 +197,12 @@ class FEM_Domain:
         else:
             self.tensor_table.define(name, list(free_ids), as_term(expr))
         return SymRef(name, self.registry)
+
+    def register_function(self, name: str, fn: Callable) -> None:
+        """User callbacks referenced by name in weak forms (the analog of
+        Main.$op dispatch, symbolics/08_Tensor.jl:210).  A callback that
+        declares a ``user`` parameter receives ``user_state``."""
+        self.functions[name] = fn
 
     # ------------------------------------------------------------------
     # geometry / physics wiring
@@ -297,7 +335,9 @@ class FEM_Domain:
     def _build_phase_maps(self, phase_key: str) -> dict:
         """Reduction maps of one assembly phase: lattice strided adds
         (into self._fast_maps) where a stream's slot columns are affine in
-        the lattice index, device gather maps (returned) for the rest."""
+        the lattice index, device gather maps (returned) for the rest,
+        and under "rest_cols" the remaining columns of each split stream
+        as device indices."""
         seg_bases = np.asarray(
             [s[4] for s in self.pattern.offset_layout.segments])
         seg_ncp = np.asarray(
@@ -315,6 +355,7 @@ class FEM_Domain:
             self._compiled_wps, self.pattern, phase_key)
         fast = {"r": {}, "k": {}}
         rest = {"r": [], "k": []}
+        rest_cols_dev = {}
         counters = {"r": 0, "k": 0}
         for s in streams:
             kind = s["kind"]
@@ -343,11 +384,13 @@ class FEM_Domain:
                 fast[kind][si] = (fs_list, rest_cols)
                 if rest_cols.size:
                     rest[kind].append(slots2[:, rest_cols].reshape(-1))
+                    rest_cols_dev[kind, si] = torch.as_tensor(
+                        rest_cols.astype(np.int64), device=self.device)
             else:
                 rest[kind].append(s["slots"].reshape(-1))
         self._fast_maps[phase_key] = fast
 
-        entry = {}
+        entry = {"rest_cols": rest_cols_dev}
         for kind, num in (("r", self.pattern.basicfield_size),
                           ("k", self.pattern.n_storage)):
             if not rest[kind]:
@@ -471,7 +514,8 @@ class FEM_Domain:
                 "K_linear": torch.zeros(self.pattern.n_storage,
                                         dtype=self.dtype, device=self.device),
                 "t": self.t, "dt": self.dt,
-                "K_params": self._tensor(ga.K_params),
+                "K_params": device_constant(ga.K_params, self.dtype,
+                                            self.device),
                 "global_vars": {k: float(v)
                                 for k, v in self.global_vars.items()},
                 "user": self.user_state}
@@ -666,6 +710,36 @@ class FEM_Domain:
         self.x = self.x + dx
         self.dx = dx
         return res
+
+    # ------------------------------------------------------------------
+    # integration-point evaluation (for history-variable return maps)
+    # ------------------------------------------------------------------
+    def evaluate_at_itg(self, wp_id: int, expr) -> torch.Tensor:
+        """Evaluate a (scalar, concrete-index) expression at the domain
+        quadrature points of a workpiece using the current solution x:
+        returns [n_el, n_itg] on the domain's device.  This is how user
+        code recomputes converged integration-point quantities to update
+        history state (replacing MetaFEM.jl's in-callback mutation,
+        J2Plasticity.jl:201-208)."""
+        term = as_term(expr)
+        if free_index(term):
+            raise ValueError("evaluate_at_itg expects concrete indices")
+        term = unroll_and_simplify(term, self.dim)
+        tb = self.tensor_table
+        la = self.workpieces[wp_id].local_assembly
+        inner, exter = extract_words(tb, term)
+        inner_infos = [_innervar_info(self.dim, w, la.bvar_mapping)
+                       for w in inner]
+        exter_infos = [_extervar_info(self.dim, w) for w in exter]
+        wp_state = self.state["wp"][wp_id]
+        env = _build_env(tb, wp_state, wp_state["el"],
+                         self._compiled_wps[wp_id], inner_infos,
+                         exter_infos, self.x, self.t, self.dt,
+                         {k: float(v) for k, v in self.global_vars.items()},
+                         is_boundary=False)
+        ctx = LoweringContext(tb, env, self.functions,
+                              user_state=self.user_state)
+        return ctx.lower(term)
 
     # ------------------------------------------------------------------
     # state sync (assemble_X! / dessemble_X!)

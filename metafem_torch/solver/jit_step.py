@@ -22,6 +22,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..config import device_constant
 from ..linsolve import krylov
 from ..linsolve.block_offset import OffsetMatrix
 from ..linsolve.precond import pr_jacobi
@@ -126,10 +127,10 @@ def make_jitted_step(domain, sv_func: Callable = krylov.bicgstab,
         dt_pow = np.asarray([f(dt) ** i for i in range(levels)], f)
         beta = f(1.0) / (prod_gamma * dt_pow)
         K_params = np.asarray(alpha[:levels], f) * beta
-        beta_t = torch.as_tensor(beta).to(dev)
+        beta_t = device_constant(beta, dtype, dev)
         st = dict(state)
         st["t"], st["dt"] = float(t), float(dt)
-        st["K_params"] = torch.as_tensor(K_params).to(dev)
+        st["K_params"] = device_constant(K_params, dtype, dev)
         st["x_star"] = x
         st["K_linear"] = (combine_klin(st, K_params) if static_k_linear
                           else k_linear(st))
@@ -311,8 +312,8 @@ def make_refined_step(domain, sv_func: Callable = krylov.bicgstab,
         dt_pow = np.asarray([dt64 ** i for i in range(levels)], np.float64)
         beta = 1.0 / (prod_gamma * dt_pow)
         K_params64 = np.asarray(alpha[:levels], np.float64) * beta
-        beta_t = torch.as_tensor(beta, dtype=f64, device=dev)
-        K_params64_t = torch.as_tensor(K_params64, dtype=f64, device=dev)
+        beta_t = device_constant(beta, f64, dev)
+        K_params64_t = device_constant(K_params64, f64, dev)
 
         ref = state["refined"]
         A64, b64 = ref["A"], ref["b"]

@@ -25,23 +25,26 @@ from typing import Callable, Dict
 
 import torch
 
+from ..config import device_constant
 from ..symbolics.api import word_total_sym
 from ..symbolics.ir import GroundTerm, Term, Word
 from ..symbolics.registry import (EXTERNAL_VAR, INTEGRATION_POINT_VAR,
                                   INTERNAL_VAR)
 from ..symbolics.tensor_table import TensorTable
 
+
 def _lift(fn: Callable) -> Callable:
     """Apply a torch function to arguments that may be Python numbers
     (constants of the weak form): numbers become tensors of the type and
-    device of the first tensor argument, or 0-d float64 tensors."""
+    device of the first tensor argument (copied to the device once per
+    value, ``config.device_constant``), or 0-d float64 tensors."""
     def call(*args):
         like = next((a for a in args if torch.is_tensor(a)), None)
         if like is None:
             return fn(*(torch.as_tensor(a, dtype=torch.float64)
                         for a in args))
         return fn(*(a if torch.is_tensor(a) else
-                    torch.as_tensor(a, dtype=like.dtype, device=like.device)
+                    device_constant(a, like.dtype, like.device)
                     for a in args))
     return call
 

@@ -15,6 +15,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..config import device_constant
+
 
 @dataclasses.dataclass
 class GeneralAlpha:
@@ -57,8 +59,7 @@ def initialize_dx(x: torch.Tensor, dt: float,
 def update_dx(dx: torch.Tensor, delta_x: torch.Tensor,
               beta_params: np.ndarray) -> torch.Tensor:
     """Corrector: dx[l] += beta_l * delta_x (update_dx!, :32-39)."""
-    beta = torch.as_tensor(np.asarray(beta_params), dtype=dx.dtype,
-                           device=dx.device)
+    beta = device_constant(beta_params, dx.dtype, dx.device)
     return dx + beta[:, None] * delta_x[None, :].to(dx.dtype)
 
 
@@ -66,8 +67,7 @@ def x_star_of(x: torch.Tensor, dx: torch.Tensor,
               alpha_params: Tuple[float, ...]) -> torch.Tensor:
     """Stage state: x* = x + alpha o dx (update_x_star!, :41-49)."""
     levels = x.shape[0]
-    alpha = torch.as_tensor(np.asarray(alpha_params[:levels], np.float64),
-                            dtype=x.dtype, device=x.device)
+    alpha = device_constant(alpha_params[:levels], x.dtype, x.device)
     return x + alpha[:, None] * dx
 
 

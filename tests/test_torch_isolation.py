@@ -56,8 +56,9 @@ def test_slice_runs_with_jax_and_reference_blocked():
     """A fresh interpreter in which importing jax, jaxlib or metafem
     fails imports the port and chip_smoke.py, runs the slice phase, the
     flagship bench (small) and a BiCGStab(4) solve on a sorted-COO matrix
-    on the CPU, with the solver menu, the jitted step and the 3D examples
-    imported: lazy imports inside functions are caught too."""
+    on the CPU, with the solver menu, the jitted step, the 3D examples
+    and the multi-field examples imported, and J2's return map run:
+    lazy imports inside functions are caught too."""
     code = (
         "import sys\n"
         "for m in ('jax', 'jaxlib', 'metafem'):\n"
@@ -78,6 +79,14 @@ def test_slice_runs_with_jax_and_reference_blocked():
         "from metafem_torch.linsolve.spmv import SparseMatrix\n"
         "from metafem_torch.solver import jit_step\n"
         "from metafem_torch.examples import cantilever_3d, hyperelastic_3d\n"
+        "from metafem_torch.examples import (cavity_2d, j2_plasticity,\n"
+        "                                    thermal_elasticity_3d)\n"
+        "z = torch.zeros((6, 2, 3), dtype=torch.float64)\n"
+        "e6 = z.clone(); e6[0] = 0.01\n"
+        "ep, b, Y = j2_plasticity.radial_return(\n"
+        "    e6, z, z, torch.full((2, 3), 100.0, dtype=torch.float64),\n"
+        "    5e4, 0.0, 0.0, 5e4, 1.0)\n"
+        "assert float(ep[0].min()) > 0 and float(Y.min()) > 100.0\n"
         "n = 32\n"
         "i = torch.arange(n)\n"
         "rows = torch.cat([i, i[1:], i[:-1]])\n"
