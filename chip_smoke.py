@@ -6,14 +6,16 @@
 from the root of the repository.  Phases, one line or more each:
 
 1. environment: torch and CUDA versions, the card's name and power limit;
-2. build: both hand-written kernels compiled with nvcc, in parallel,
-   and ptxas's report of their registers and spills;
+2. build: both kernel sources compiled with nvcc, in parallel (the
+   SpMV's holds its float64, float32 and two-float entry points), and
+   ptxas's report of their registers and spills;
 3. kernel parity: the packed block-offset SpMV against its plain
    PyTorch version and the dense formula on the README thermal operator
    (f64, f32) and a C=2 elastic one, with times from CUDA events (back
    to back and with L2 flushed) beside three bounds (structural entries,
    packed bytes, whole storage), a CSR library product, the pack plan's
-   build time and the pack's cost;
+   build time and the pack's cost; every two-float op on the card
+   against float64 on the card;
 4. the gather probe (``metafem_torch.benchmarks.gather_probe``) at the
    TPU probe's two sizes and the main path's counts (x of the 3D bar,
    541,059 values, read 89,057,289 times at uniform random): the
@@ -28,7 +30,13 @@ from the root of the repository.  Phases, one line or more each:
    one-time phase, the converge-once pass, the Chebyshev tune, the
    timed step (final residual below 1e-6), SpMV launches per step split
    f32/f64, launches per V-cycle, where the step's time goes, a bitwise
-   repeat, and the SpMV's parity and time at this size;
+   repeat, and the SpMV's parity and time at this size; then the same
+   step in the two-float residual mode (``residual_mode="df32"``, x as a
+   DF pair): 3 timed steps with the device-busy time, refines, residuals
+   and launches of the two-float and f32 kernels, a bitwise repeat, its
+   x against the f64 step's and its root's f64-mode residual, and the
+   two-float SpMV kernel on A_td against its plain version and the f64
+   kernel, timed beside them, CSR ``torch.mv`` and its bound;
 7. the first 3D vector-valued path: ``hyperelastic_3d`` (Neo-Hookean,
    C=3) at nel=(160,16,16) (541,059 DOF, one dense group of 9 units and
    117 offsets, f64): the SpMV's parity and time on its tangent in f64
@@ -46,13 +54,18 @@ from the root of the repository.  Phases, one line or more each:
    e_number=1 stepped to steady state with the reference test's bending
    bars; ``cavity_2d`` (velocity and pressure, C=3) at 40 x 40, Re 100
    and Re 1000 each within 0.02 of Ghia et al.'s centreline minimum,
-   and the SpMV on its tangent; ``j2_plasticity``'s mixed-hardening
+   and the SpMV on its tangent, then a float32 twin at the Re 100
+   fields through one df32 refined step (residual below 1e-9, the f64
+   domain's residual of its root below 5e-9; the two-float volume
+   lowering of the convection on the card) and the two-float SpMV on
+   its A_td; ``j2_plasticity``'s mixed-hardening
    sequence within 1.5e-3 of the analytic elongations, its history on
    the card;
 9. the ``kernels`` JSON line, then the device JSON line last.
 
-Each path (gather probe, README step, flagship, each 3D load step, each
-thermo-elastic step, each cavity Reynolds number) runs
+Each path (gather probe, README step, flagship, the df32 flagship, each
+3D load step, each thermo-elastic step, each cavity Reynolds number, the
+df32 cavity) runs
 with the kernels' launch counts set to 0 just before it and read just
 after; every path must have launched its kernel.  Every failure raises
 and exits non-zero.
@@ -163,7 +176,8 @@ def phase_build() -> float:
     gather_probe.load_library()
     sec = time.perf_counter() - t0
     flags = " ".join(buildlib.NVCC_FLAGS)
-    print(f"[build] offset_spmv.cu and gather_probe.cu with nvcc {flags}: "
+    print(f"[build] offset_spmv.cu (float64, float32 and two-float "
+          f"entry points) and gather_probe.cu with nvcc {flags}: "
           f"{sec:.2f} s")
     for lib in libs:
         for line in buildlib.build_log(lib).splitlines():
@@ -280,9 +294,162 @@ def phase_kernel(device, nel=NEL, elastic_nel=ELASTIC_NEL) -> dict:
 
     t = _spmv_numbers(A, x, device)
     _print_spmv("kernel", f"thermal {nel}", A, t)
+    df_worst = _df_ops_check(device)
+    print(f"[kernel] two-float ops on the card against float64 on the "
+          f"card: worst error {df_worst:.3f} of its bound; two_prod exact")
     print(f"[kernel] phase {time.perf_counter() - t0:.1f} s")
     return {**t, "max_abs_err": abs64, "max_rel_err_f64": max(rel64, rel_e),
             "max_rel_err_f32": rel32}
+
+
+#: float32 operations of one entry of the two-float product: two_prod by
+#: fma (2), the cross terms (4), df_add into the unit's pair (11)
+DF_OPS_PER_ENTRY = 17
+#: the two-float SpMV against its plain version and the float64 kernel:
+#: |dy| <= DF_SPMV_BOUND * (|A||x|)_row
+DF_SPMV_BOUND = 2.0 ** -45
+
+
+def _df_ops_check(device, n: int = 1 << 20) -> float:
+    """Every two-float op on ``device`` against float64 on the same
+    device, each within its own error bound (tests/test_torch_twofloat.py
+    holds the same ops to the reference on the CPU); returns the worst
+    error over its bound."""
+    from metafem_torch.linsolve import twofloat as tf
+    g = torch.Generator(device="cpu").manual_seed(20261017)
+
+    def vec():
+        v = (torch.randn(n, generator=g, dtype=torch.float64)
+             * 10.0 ** (6 * torch.rand(n, generator=g,
+                                       dtype=torch.float64) - 3))
+        return tf.df_from_f64(v.to(device))
+    x, y = vec(), vec()
+    x64, y64 = tf.df_to_f64(x), tf.df_to_f64(y)
+    v32 = y.hi
+    v64 = v32.double()
+    cases = {
+        "df_add": (tf.df_add(x, y), x64 + y64, x64.abs() + y64.abs(), -44),
+        "df_sub": (tf.df_sub(x, y), x64 - y64, x64.abs() + y64.abs(), -44),
+        "df_mul": (tf.df_mul(x, y), x64 * y64, (x64 * y64).abs(), -44),
+        "df_div": (tf.df_div(x, y), x64 / y64, (x64 / y64).abs(), -44),
+        "df_add_f32": (tf.df_add_f32(x, v32), x64 + v64,
+                       x64.abs() + v64.abs(), -45),
+        "df_scale": (tf.df_scale(x, v32), x64 * v64, (x64 * v64).abs(), -45),
+        "df_dot2": (tf.df_dot2([(x, y), (y, x), (x, x)]),
+                    2 * x64 * y64 + x64 * x64,
+                    2 * (x64 * y64).abs() + x64 * x64, -44)}
+    p, e = tf.two_prod(x.hi, y.hi)
+    worst = 0.0
+    for name, (got, want, mag, lg) in cases.items():
+        err = float(((tf.df_to_f64(got) - want).abs()
+                     / (2.0 ** lg * mag).clamp(min=1e-300)).max())
+        if not err <= 1.0:
+            raise AssertionError(f"{name} on {device} off by {err} of its "
+                                 f"bound")
+        worst = max(worst, err)
+    if not torch.equal(p.double() + e.double(), x.hi.double() * y.hi.double()):
+        raise AssertionError(f"two_prod on {device} is not exact")
+    return worst
+
+
+def _df_spmv(ref: dict, layout, rng, device, label: str, tag: str) -> dict:
+    """The two-float SpMV kernel on each time level of the frozen pair
+    (``ref`` after a df32 step: A_hi/A_lo and their packed pairs) at a
+    random x pair, held row by row within DF_SPMV_BOUND * (|A||x|)_row
+    of its plain version (both on the card) and of the float64 packed
+    kernel on (hi + lo), and launched twice to the same bits; then the
+    first level's kernel timed (CUDA graph replay, and with L2 flushed)
+    beside its plain version, the float64 kernel and CSR ``torch.mv`` in
+    float64 on the same entries, and the bound: the structural entries'
+    8 bytes each, x's and y's pairs once, at the card's memory rate, or
+    DF_OPS_PER_ENTRY float32 operations per entry, whichever is
+    longer."""
+    from metafem_torch.linsolve import offset_spmv
+    from metafem_torch.linsolve import twofloat as tf
+    from metafem_torch.linsolve.block_offset import OffsetMatrix
+    (grp,) = layout.pallas_groups
+    C, n_cp = grp.n_vars, grp.n_cp
+    (plan,) = OffsetMatrix.from_values(ref["A_hi"][0], layout).pack_plans(
+        vec=offset_spmv.DF_VEC)
+    x = tf.df_from_f64(torch.as_tensor(
+        rng.standard_normal(layout.n) * (1.0 + rng.random(layout.n)),
+        device=device))
+    xw = tf.DF(x.hi.view(C, n_cp), x.lo.view(C, n_cp))
+    x64 = tf.df_to_f64(x)
+    worst_plain, worst_f64, max_abs = 0.0, 0.0, 0.0
+    for td in range(ref["A_hi"].shape[0]):
+        (packed,) = ref["A_packed"][td]
+        a = tf.DF(ref["A_hi"][td], ref["A_lo"][td])
+        y = offset_spmv.group_mv_df(packed, xw.hi, xw.lo, plan)
+        y2 = offset_spmv.group_mv_df(packed, xw.hi, xw.lo, plan)
+        torch.cuda.synchronize(device)
+        if not (torch.equal(y[0], y2[0]) and torch.equal(y[1], y2[1])):
+            raise AssertionError("offset_spmv_packed_df: two launches on "
+                                 "one input differ")
+        yk = tf.df_to_f64(tf.DF(*y)).view(-1)
+        plain = offset_spmv.group_mv_df_plain(
+            packed, xw.hi, xw.lo, plan, torch.empty_like(y[0]),
+            torch.empty_like(y[1]))
+        plan.columns = None
+        A64 = OffsetMatrix.from_values(tf.df_to_f64(a), layout)
+        y64 = A64.mv(x64)
+        ax = OffsetMatrix.from_values(A64.vals.abs(), layout).mv(x64.abs())
+        bound = DF_SPMV_BOUND * ax.clamp(min=1e-300)
+        d_plain = (yk - tf.df_to_f64(tf.DF(*plain)).view(-1)).abs()
+        d_f64 = (yk - y64).abs()
+        worst_plain = max(worst_plain, float((d_plain / bound).max()))
+        worst_f64 = max(worst_f64, float((d_f64 / bound).max()))
+        max_abs = max(max_abs, float(d_plain.max()))
+        del plain, y64, ax, bound, d_plain, d_f64
+    if not (worst_plain <= 1.0 and worst_f64 <= 1.0):
+        raise AssertionError(f"two-float SpMV on {label}: off by "
+                             f"{worst_plain} (plain), {worst_f64} (f64 "
+                             f"kernel) of 2^-45 |A||x|")
+    (packed,) = ref["A_packed"][0]
+    out = (torch.empty_like(xw.hi), torch.empty_like(xw.lo))
+
+    def kernel():
+        offset_spmv.group_mv_df(packed, xw.hi, xw.lo, plan, *out)
+    ms = _time_ms(kernel, graph=True)
+    cold_ms = _time_cold_ms(kernel, device)
+    offset_spmv.packed_columns(plan)
+    plain_ms = _time_ms(lambda: offset_spmv.group_mv_df_plain(
+        packed, xw.hi, xw.lo, plan, *out), reps=5, warmup=1)
+    plan.columns = None
+    A64 = OffsetMatrix.from_values(tf.df_to_f64(
+        tf.DF(ref["A_hi"][0], ref["A_lo"][0])), layout)
+    (plan64,) = A64.pack_plans()
+    packed64 = A64.packed(0)
+    xw64 = x64.view(C, n_cp)
+    out64 = torch.empty_like(xw64)
+    f64_ms = _time_ms(lambda: offset_spmv.group_mv(packed64, xw64, plan64,
+                                                   out64), graph=True)
+    csr = A64.to_csr()
+    nnz = csr.values().numel()
+    csr_ms = _time_ms(lambda: torch.mv(csr, x64))
+    del csr, A64, packed64
+    rate = _peak_bytes(torch.cuda.get_device_name(device))
+    t_bytes = (8 * nnz + 2 * 8 * layout.n) / rate
+    t_ops = DF_OPS_PER_ENTRY * nnz / PEAK_FLOPS["float32"]
+    bound_ms = 1e3 * max(t_bytes, t_ops)
+    print(f"[{tag}] offset_spmv_packed_df {label} ({ref['A_hi'].shape[0]} "
+          f"time level(s), G={len(grp.units)}, n_off={grp.n_off}, C={C}, "
+          f"n_cp={n_cp}, {nnz} structural entries): worst |dy| / (2^-45 "
+          f"|A||x|)_row {worst_plain:.3e} against its plain version "
+          f"(max abs {max_abs:.3e}), {worst_f64:.3e} against the float64 "
+          f"kernel; repeat launches bitwise equal; kernel {ms:.4f} ms "
+          f"(graph replay), {cold_ms:.4f} ms with L2 flushed; plain "
+          f"{plain_ms:.4f} ms; float64 packed kernel {f64_ms:.4f} ms; CSR "
+          f"torch.mv float64 {csr_ms:.4f} ms; bound {bound_ms:.4f} ms "
+          f"({'bytes' if t_bytes >= t_ops else 'operations'}; "
+          f"{100 * bound_ms / ms:.0f}% of it)")
+    return {"ms": ms, "cold_ms": cold_ms, "plain_ms": plain_ms,
+            "f64_kernel_ms": f64_ms, "csr_f64_ms": csr_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "nnz": nnz, "levels": int(ref["A_hi"].shape[0]),
+            "max_abs_err": max_abs, "worst_vs_plain": worst_plain,
+            "worst_vs_f64_kernel": worst_f64}
 
 
 def phase_slice(device, nel=NEL) -> dict:
@@ -600,7 +767,7 @@ def phase_flagship(device, nel=FLAGSHIP_NEL) -> dict:
     phases = bench.Phases(dom)
     phases.s["setup"] = time.perf_counter() - t0
     x0, (res_c, it_c), step, label = bench.prepare(dom, phases)
-    dt, results, _ = bench.measure(dom, step, x0)
+    dt, results, x_f64 = bench.measure(dom, step, x0)
     path_launches = dict(offset_spmv.group_mv.launches_by_dtype)
     n_dof = dom.pattern.basicfield_size
     for k, v in phases.s.items():
@@ -692,13 +859,137 @@ def phase_flagship(device, nel=FLAGSHIP_NEL) -> dict:
         raise AssertionError(f"f64 kernel disagrees: {spmv64['rel']}")
     if not spmv32["rel"] <= 1e-6:
         raise AssertionError(f"f32 kernel disagrees: {spmv32['rel']}")
+    df32 = _flagship_df32(dom, state, x0, x_f64, label, step, device)
+    df_spmv = _df_spmv(dom._refined, dom.pattern.offset_layout, rng, device,
+                       "A_td", "flagship")
     print(f"[flagship] phase {time.perf_counter() - t_all:.1f} s")
     return {"launches": sum(path_launches.values()),
             "path_launches": {str(k).split(".")[1]: v
                               for k, v in path_launches.items()},
             "per_step": per_step, "vcycle_launches": vc_launches,
             "step_ms": dt * 1e3, "final_residual": final,
-            "spmv32": spmv32, "spmv64": spmv64}
+            "spmv32": spmv32, "spmv64": spmv64, "df32": df32,
+            "df_spmv": df_spmv}
+
+
+def _flagship_df32(dom, state, x0, x_f64, label, step64, device) -> dict:
+    """The flagship's refined step in the two-float residual mode: the
+    reference bench's own step (``bench.STEP_KW``, the tuned inner
+    solver), x carried as a DF pair, 3 timed steps from ``df_from_f64``
+    of the f64 step's perturbed starts, with the launch counts set to 0
+    before them and read after.  Beside each, the f64 step ``step64``
+    from the same start, in turns (f64 first, df32 first, f64 first),
+    since host speed drifts within a call.  Each step below 1e-6; the
+    last step's x within 2e-5 * max|x| of the f64 step's from the same
+    start, and its float64-mode residual (the port's f64 path, no
+    refine) below 1e-6; two steps from one x equal bit for bit."""
+    from metafem_torch import bench
+    from metafem_torch.linsolve import krylov, multigrid, offset_spmv
+    from metafem_torch.linsolve import twofloat as tf
+    t0 = time.perf_counter()
+    step = dom.make_refined_step(sv_func=getattr(krylov, label),
+                                 residual_mode="df32", **bench.STEP_KW)
+    counts = offset_spmv.group_mv.launches_by_dtype
+
+    def timed(fn, x):
+        """(ms, launches of the two-float, f32 and f64 kernels, result)"""
+        before = (offset_spmv.group_mv_df.launches,
+                  counts[torch.float32], counts[torch.float64])
+        torch.cuda.synchronize(device)
+        t = time.perf_counter()
+        out = fn(state, x, 0.0, 1.0)
+        torch.cuda.synchronize(device)
+        ms = 1e3 * (time.perf_counter() - t)
+        after = (offset_spmv.group_mv_df.launches,
+                 counts[torch.float32], counts[torch.float64])
+        return ms, [a - b for a, b in zip(after, before)], out
+
+    offset_spmv.reset_launches()
+    # warm: the DF split of A_td and b, their pack
+    _, path, _ = timed(step, tf.df_from_f64(bench.perturbed(x0, -1)))
+    warm_s = time.perf_counter() - t0
+    trials, f64_ms = [], []
+    for trial in range(3):
+        x64_start = bench.perturbed(x0, trial)
+        x1 = tf.df_from_f64(x64_start)
+        if trial != 1:
+            f64_ms.append(timed(step64, x64_start)[0])
+        ms, n, (xd, _, res, it) = timed(step, x1)
+        path = [a + b for a, b in zip(path, n)]
+        trials.append({"ms": ms, "residual": res, "refines": it,
+                       "df_launches": n[0], "f32_launches": n[1]})
+        if trial == 1:
+            f64_ms.append(timed(step64, x64_start)[0])
+    launches, launches32, launches64 = path
+    if launches <= 0 or launches32 <= 0:
+        raise AssertionError(f"the df32 flagship path launched the "
+                             f"two-float kernel {launches} and the f32 "
+                             f"kernel {launches32} times")
+    if launches64:
+        raise AssertionError("the df32 step launched the float64 kernel")
+    if not all(t["residual"] < 1e-6 for t in trials):
+        raise AssertionError(f"df32 flagship steps: {trials}")
+    n_prof, kernels = _kernel_profile(lambda: step(state, x1, 0.0, 1.0),
+                                      device)
+    busy = sum(kernels.values())
+    xb, _, _, _ = step(state, x1, 0.0, 1.0)
+    if not (torch.equal(xd.hi, xb.hi) and torch.equal(xd.lo, xb.lo)):
+        raise AssertionError("two runs of the df32 flagship step differ")
+    # where the step's time goes, as for the f64 step
+    parts = _Parts(device)
+    mv, vc, rp = tf.df_offset_mv, multigrid.vcycle, dom._run_phase
+    try:
+        tf.df_offset_mv = parts.wrap(mv, lambda *a: "df_offset_mv")
+        multigrid.vcycle = parts.wrap(vc, lambda *a: "vcycle")
+        dom._run_phase = parts.wrap(rp, lambda st, ph: f"assembly_{ph}")
+        step_t = dom.make_refined_step(sv_func=getattr(krylov, label),
+                                       residual_mode="df32",
+                                       **bench.STEP_KW)
+        torch.cuda.synchronize(device)
+        t = time.perf_counter()
+        step_t(state, x1, 0.0, 1.0)
+        torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t
+    finally:
+        tf.df_offset_mv, multigrid.vcycle, dom._run_phase = mv, vc, rp
+    rest = wall - sum(parts.s.values())
+    print(f"[flagship] df32 step parts (host clock, synchronised around "
+          f"each part; {wall * 1e3:.2f} ms in all): " + ", ".join(
+              f"{k} {v * 1e3:.2f} ms" for k, v in sorted(parts.s.items()))
+          + f", rest (df ops, combine, fine SpMV, axpys, norms) "
+          f"{rest * 1e3:.2f} ms")
+    x64 = tf.df_to_f64(xd)
+    rel = float((x64 - x_f64).abs().max() / x_f64.abs().max())
+    check = dom.make_refined_step(sv_func=krylov.bicgstab, max_refine=0)
+    _, _, res64, _ = check(state, x64, 0.0, 1.0)
+    ms = float(np.median([t["ms"] for t in trials]))
+    ms64 = float(np.median(f64_ms))
+    df_k = sum(v for k, v in kernels.items() if "packed_df" in k)
+    finals = [float(f"{t['residual']:.3e}") for t in trials]
+    print(f"[flagship] df32 step (residual_mode='df32', x as a DF pair): "
+          f"median {ms:.2f} ms over {[round(t['ms'], 2) for t in trials]} "
+          f"ms, beside the f64 step from the same starts in turns "
+          f"{ms64:.2f} ms over {[round(v, 2) for v in f64_ms]} ms "
+          f"({ms / ms64:.2f}x), device busy {busy:.2f} ms (torch.profiler; "
+          f"the two-float SpMV {df_k:.3f} ms; {n_prof or 'not measured'} "
+          f"kernel launches); refines {[t['refines'] for t in trials]}, final "
+          f"residuals {finals}; "
+          f"two-float SpMV launches per step "
+          f"{[t['df_launches'] for t in trials]}, f32 SpMV launches per "
+          f"step {[t['f32_launches'] for t in trials]}; path launches "
+          f"{launches} two-float, {launches32} f32; warm step (DF split, "
+          f"pack) {warm_s:.2f} s; x within {rel:.3e} * max|x| of the f64 "
+          f"step's from the same start; its f64-mode residual "
+          f"{res64:.3e}; two steps from one x bitwise equal")
+    if not rel <= 2e-5:
+        raise AssertionError(f"df32 flagship x off the f64 step's: {rel}")
+    if not res64 < 1e-6:
+        raise AssertionError(f"df32 flagship root's f64 residual: {res64}")
+    return {"step_ms": ms, "f64_step_ms": ms64, "f64_trials_ms": f64_ms,
+            "busy_ms": busy, "trials": trials,
+            "launches": launches, "launches_f32": launches32,
+            "rel_to_f64": rel, "f64_residual": res64, "warm_s": warm_s,
+            "parts_ms": {k: 1e3 * v for k, v in parts.s.items()}}
 
 
 def _solve_twice(dom, A, residue, device) -> tuple:
@@ -1118,6 +1409,8 @@ def _cavity_path(device, e_number) -> dict:
         out["re"][Re] = {"u_min": float(us[i_min]), "y_min": float(ys[i_min]),
                          "residuals": res, "s": wall, "launches": launches,
                          "iters": sum(its)}
+        if Re == 100:
+            fields100 = {k: np.array(v) for k, v in mesh.fields.items()}
     A, residue = dom.assemble_tangent()
     out["profile"] = _cycle_profile(pr_jacobi(A)[0], residue, device,
                                     "multifield")
@@ -1133,7 +1426,73 @@ def _cavity_path(device, e_number) -> dict:
         raise AssertionError(f"f32 kernel disagrees: {spmv32['rel']}")
     out.update(spmv64=spmv64, spmv32=spmv32,
                launches=sum(r["launches"] for r in out["re"].values()))
+    out["df32"] = _cavity_df32(dom, wp, fields100, e_number, device, rng)
     return out
+
+
+def _cavity_df32(dom, wp, fields, e_number, device, rng) -> dict:
+    """tests/test_refined.py's df32 cavity at the example's own mesh: a
+    float32 twin seeded with the float64 domain's Re 100 fields (the
+    taus included), frozen, then one df32 refined step with the
+    reference test's settings (right-Jacobi BiCGStab(4), maxiter 1500,
+    max_refine 20, max_pass 3) and launch counts set to 0 before it and
+    read after: residual below 1e-9, and the float64 domain's own
+    residual of the df32 root (at the same fields) below 5e-9.  Then
+    the two-float SpMV on the twin's A_td."""
+    from metafem_torch.examples import cavity_2d as cv
+    from metafem_torch.linsolve import krylov, offset_spmv
+    t0 = time.perf_counter()
+    dom32, _, wp32, _ = cv.build(e_number=e_number, device=device,
+                                 dtype=torch.float32)
+    for name, col in fields.items():
+        dom32.set_field(wp32, name, col)
+    dom32.refresh_fields()
+    dom32.assemble_x()
+    dom32.converge_tol = 1e-9
+    dom32.freeze_linear_tangent()
+    dom32.freeze_refined_residual()
+    if dom32._refined["wp_df"] is None:
+        raise AssertionError("the cavity's convection is not nonaffine")
+    step = dom32.make_refined_step(sv_func=krylov.bicgstabl, s=4,
+                                   maxiter=1500, max_refine=20, max_pass=3,
+                                   precond="jacobi", residual_mode="df32")
+    setup_s = time.perf_counter() - t0
+    offset_spmv.reset_launches()
+    t = time.perf_counter()
+    x1, _, res, it = step(dom32._runtime_state(),
+                          dom32.x.to(torch.float64), 0.0, 1.0)
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t
+    launches = offset_spmv.group_mv_df.launches
+    launches32 = offset_spmv.group_mv.launches_by_dtype[torch.float32]
+    for name, col in fields.items():
+        dom.set_field(wp, name, col)
+    dom.refresh_fields()
+    dom.time_discretization.update_time(1.0, dom.pattern.max_time_level)
+    st = dom._runtime_state()
+    st["x_star"] = x1
+    st["K_linear"] = dom._k_linear(st)
+    r_cross, _ = dom._res_k(st)
+    res_cross = float(torch.linalg.norm(r_cross)) / np.sqrt(
+        dom.pattern.basicfield_size)
+    print(f"[multifield] cavity df32 refined step at e_number={e_number} "
+          f"(float32 twin with the Re 100 fields): residual {res:.3e} in "
+          f"{it} refines, {wall:.2f} s (setup and freezes {setup_s:.2f} "
+          f"s); float64 domain's residual of the df32 root "
+          f"{res_cross:.3e}; two-float SpMV launches {launches}, f32 "
+          f"{launches32}")
+    if not res < 1e-9:
+        raise AssertionError(f"cavity df32 step: residual {res}")
+    if not res_cross < 5e-9:
+        raise AssertionError(f"cavity df32 root's f64 residual {res_cross}")
+    if launches <= 0 or launches32 <= 0:
+        raise AssertionError("the cavity df32 step launched no two-float "
+                             "or f32 SpMV kernel")
+    df_spmv = _df_spmv(dom32._refined, dom32.pattern.offset_layout, rng,
+                       device, "cavity A_td", "multifield")
+    return {"residual": res, "refines": it, "s": wall,
+            "f64_residual": res_cross, "launches": launches,
+            "launches_f32": launches32, "df_spmv": df_spmv}
 
 
 def _j2_path(device, e_number) -> dict:
@@ -1214,6 +1573,7 @@ def main() -> None:
     print("[time] " + ", ".join(f"{k} {v:.2f} s" for k, v in times.items())
           + f", total {time.perf_counter() - t_start:.2f} s on {env['smi']}")
     s32 = flag["spmv32"]
+    dfs = flag["df_spmv"]
 
     def numbers(t):
         return {k: t[k] for k in SPMV_KEYS}
@@ -1278,7 +1638,30 @@ def main() -> None:
         # the main path's counts with uniform indices, then the 3D
         # tangent's own read stream
         "main_path": gat["main_path"] + p3d["gather"],
-        "rows": gat["rows"]}]}))
+        "rows": gat["rows"]}, {
+        "name": "df_offset_spmv", "route": "cuda",
+        "source": "metafem_torch/csrc/offset_spmv.cu",
+        "replaces": ("metafem/linsolve/twofloat.py:236 (XLA-fused, no "
+                     "Pallas kernel)"),
+        # the df32 flagship path's launches; the numbers of its A_td
+        "launches": flag["df32"]["launches"],
+        "max_abs_err": dfs["max_abs_err"], "ms": dfs["ms"],
+        "plain_ms": dfs["plain_ms"], "bound_ms": dfs["bound_ms"],
+        "bound_by": dfs["bound_by"],
+        # no PyTorch call computes a two-float product: the float64
+        # kernel and CSR torch.mv in float64 on the same entries stand
+        # beside it
+        "library_ms": None, "f64_kernel_ms": dfs["f64_kernel_ms"],
+        "csr_f64_ms": dfs["csr_f64_ms"], "cold_ms": dfs["cold_ms"],
+        "nnz": dfs["nnz"], "worst_vs_plain": dfs["worst_vs_plain"],
+        "worst_vs_f64_kernel": dfs["worst_vs_f64_kernel"],
+        "launches_per_step": [t["df_launches"]
+                              for t in flag["df32"]["trials"]],
+        "df32_flagship": {k: v for k, v in flag["df32"].items()
+                          if k != "trials"},
+        "cavity_2d": {**{k: v for k, v in mfp["cavity"]["df32"].items()
+                         if k != "df_spmv"},
+                      **mfp["cavity"]["df32"]["df_spmv"]}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -33,6 +33,27 @@
 // different codes would serialise on constant memory).  Every value and
 // x address is computed in int64.  Plain C interface for ctypes; each
 // entry point returns cudaGetLastError() after the launch.
+//
+// The two-float product (offset_spmv_packed_df) computes the same sum
+// with every value an (hi, lo) pair of floats, as the reference's
+// metafem/linsolve/twofloat.py:df_offset_mv does (XLA fused it on the
+// TPU; there is no Pallas kernel for it):
+//
+//   y[pd, r] = sum_g sum_k (v_hi + v_lo)[g, k, r] * (x_hi + x_lo)[pb_g, r + d_k]
+//
+// It walks the float64 plan (V = 2): slot s holds the pair (hi, lo) of
+// its entry, so a 16-byte load brings two entries and the kernel reads
+// the same bytes as the float64 one; x's words are read from two
+// vectors.  Per unit a fresh pair sums the unit's entries with df_add
+// (two_sum, then fast_two_sum); at the unit's end the unit's pair is
+// df_added into the row's, and the row writes y_hi and y_lo once: the
+// reference's (unit, offset) order, no atomics, bitwise repeats.  The
+// error-free transforms must not be contracted, so every add, subtract
+// and multiply in them is __fadd_rn/__fsub_rn/__fmul_rn, which nvcc
+// never fuses into an FMA, and two_prod's error is fmaf(a, b, -a*b),
+// the exact error that the reference's Dekker split computes.  The
+// file's other kernels keep nvcc's contraction (see above): no
+// file-wide --fmad=false.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -125,6 +146,117 @@ offset_spmv_packed_kernel(const T* __restrict__ vals,
   y[row] = acc;
 }
 
+// ----- the two-float product ------------------------------------------
+
+__device__ __forceinline__ void two_sum(float a, float b, float& s,
+                                        float& e) {
+  s = __fadd_rn(a, b);
+  const float bb = __fsub_rn(s, a);
+  e = __fadd_rn(__fsub_rn(a, __fsub_rn(s, bb)), __fsub_rn(b, bb));
+}
+
+// (xh, xl) += (yh, yl): two_sum of the high words, then fast_two_sum of
+// the sum and the low words' error (twofloat.df_add)
+__device__ __forceinline__ void df_add(float& xh, float& xl, float yh,
+                                       float yl) {
+  float s, e;
+  two_sum(xh, yh, s, e);
+  const float t = __fadd_rn(e, __fadd_rn(xl, yl));
+  xh = __fadd_rn(s, t);
+  xl = __fsub_rn(t, __fsub_rn(xh, s));
+}
+
+// one entry: (p, e) = two_prod(v_hi, x_hi), e += v_hi*x_lo + v_lo*x_hi,
+// then df_add into the unit's pair
+__device__ __forceinline__ void df_entry(float& uh, float& ul, float vh,
+                                         float vl, float xh, float xl) {
+  const float p = __fmul_rn(vh, xh);
+  float e = fmaf(vh, xh, -p);
+  e = __fadd_rn(e, __fadd_rn(__fmul_rn(vh, xl), __fmul_rn(vl, xh)));
+  df_add(uh, ul, p, e);
+}
+
+__global__ void __launch_bounds__(kThreads)
+offset_spmv_packed_df_kernel(const float4* __restrict__ vals,
+                             const float* __restrict__ x_hi,
+                             const float* __restrict__ x_lo,
+                             float* __restrict__ y_hi,
+                             float* __restrict__ y_lo,
+                             const int32_t* __restrict__ rows,
+                             const int32_t* __restrict__ meta,
+                             const uint8_t* __restrict__ codes,
+                             const int32_t* __restrict__ list_len,
+                             const int64_t* __restrict__ ptr,
+                             const int32_t* __restrict__ dk,
+                             const int32_t* __restrict__ chan_pb,
+                             int64_t n_slices, int64_t n_groups,
+                             int64_t n_off, int64_t maxu, int64_t n_vars,
+                             int64_t n_cp, int64_t words) {
+  constexpr int kV = 2;                  // entries per 16-byte load
+  extern __shared__ int64_t smem[];
+  int64_t* s_ptr = smem;                                   // n_groups + 1
+  int32_t* s_dk = reinterpret_cast<int32_t*>(s_ptr + n_groups + 1);
+  int32_t* s_pb = s_dk + n_off;                            // n_vars*maxu
+  for (int64_t i = threadIdx.x; i <= n_groups; i += blockDim.x)
+    s_ptr[i] = ptr[i];
+  for (int64_t i = threadIdx.x; i < n_off; i += blockDim.x) s_dk[i] = dk[i];
+  for (int64_t i = threadIdx.x; i < n_vars * maxu; i += blockDim.x)
+    s_pb[i] = chan_pb[i];
+  __syncthreads();
+
+  const int64_t q = static_cast<int64_t>(blockIdx.x) * blockDim.x
+                    + threadIdx.x;
+  if (q >= n_slices * kSlice) return;
+  const int32_t row = rows[q];
+  if (row < 0) return;
+  const uint32_t mt = static_cast<uint32_t>(meta[q]);
+  unsigned mask = mt & 0xff;
+  const int64_t list = mt >> 8;
+  const int L = __ldg(list_len + list);
+  const int64_t pd = row / n_cp;
+  const int64_t r = row - pd * n_cp;
+  const int ng = (L + kV - 1) / kV;            // slot groups per unit
+  const uint32_t* cw = reinterpret_cast<const uint32_t*>(codes)
+                       + list * words;
+  float rh = 0.f, rl = 0.f;
+  int m = 0;
+  while (mask) {
+    const int i = __ffs(mask) - 1;
+    mask &= mask - 1;
+    const int64_t xo = static_cast<int64_t>(s_pb[pd * maxu + i]) * n_cp + r;
+    float uh = 0.f, ul = 0.f;
+    for (int cg = 0; cg < ng; ++cg, ++m) {
+      // slot group m of row q: slots ptr[m] + 2q, 2q + 1 = float4 ptr[m]/2 + q
+      const float4 v = __ldg(vals + s_ptr[m] / kV + q);
+      const int c0 = cg * kV;
+      const uint32_t w = __ldg(cw + (c0 >> 2)) >> ((c0 & 3) * 8);
+      const int64_t a0 = xo + s_dk[w & 0xff];
+      const int64_t a1 = xo + s_dk[(w >> 8) & 0xff];
+      df_entry(uh, ul, v.x, v.y, __ldg(x_hi + a0), __ldg(x_lo + a0));
+      df_entry(uh, ul, v.z, v.w, __ldg(x_hi + a1), __ldg(x_lo + a1));
+    }
+    df_add(rh, rl, uh, ul);
+  }
+  y_hi[row] = rh;
+  y_lo[row] = rl;
+}
+
+size_t table_bytes(int64_t n_groups, int64_t n_off, int64_t n_vars,
+                   int64_t maxu) {
+  return static_cast<size_t>(n_groups + 1) * sizeof(int64_t)
+         + static_cast<size_t>(n_off + n_vars * maxu) * sizeof(int32_t);
+}
+
+// lets `kernel` take `smem` bytes of dynamic shared memory where that is
+// above the default 48 KB
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
 template <typename T>
 int launch(const void* vals, const void* x, void* y, const void* rows,
            const void* meta, const void* codes, const void* list_len,
@@ -133,16 +265,9 @@ int launch(const void* vals, const void* x, void* y, const void* rows,
            int64_t n_vars, int64_t n_cp, int64_t words, void* stream) {
   const int64_t n_threads = n_slices * kSlice;
   if (n_threads == 0) return 0;
-  const size_t smem = static_cast<size_t>(n_groups + 1) * sizeof(int64_t)
-                      + static_cast<size_t>(n_off + n_vars * maxu)
-                        * sizeof(int32_t);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        offset_spmv_packed_kernel<T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  const size_t smem = table_bytes(n_groups, n_off, n_vars, maxu);
+  const cudaError_t err = allow_smem(offset_spmv_packed_kernel<T>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned grid =
       static_cast<unsigned>((n_threads + kThreads - 1) / kThreads);
   offset_spmv_packed_kernel<T><<<grid, kThreads, smem,
@@ -176,3 +301,31 @@ int launch(const void* vals, const void* x, void* y, const void* rows,
 
 OFFSET_SPMV_PACKED(offset_spmv_packed_f64, double)
 OFFSET_SPMV_PACKED(offset_spmv_packed_f32, float)
+
+extern "C" int offset_spmv_packed_df(
+    const void* vals, const void* x_hi, const void* x_lo, void* y_hi,
+    void* y_lo, const void* rows, const void* meta, const void* codes,
+    const void* list_len, const void* ptr, const void* dk,
+    const void* chan_pb, int64_t n_slices, int64_t n_groups, int64_t n_off,
+    int64_t maxu, int64_t n_vars, int64_t n_cp, int64_t words,
+    void* stream) {
+  const int64_t n_threads = n_slices * kSlice;
+  if (n_threads == 0) return 0;
+  const size_t smem = table_bytes(n_groups, n_off, n_vars, maxu);
+  const cudaError_t err = allow_smem(offset_spmv_packed_df_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned grid =
+      static_cast<unsigned>((n_threads + kThreads - 1) / kThreads);
+  offset_spmv_packed_df_kernel<<<grid, kThreads, smem,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(vals), static_cast<const float*>(x_hi),
+      static_cast<const float*>(x_lo), static_cast<float*>(y_hi),
+      static_cast<float*>(y_lo), static_cast<const int32_t*>(rows),
+      static_cast<const int32_t*>(meta),
+      static_cast<const uint8_t*>(codes),
+      static_cast<const int32_t*>(list_len),
+      static_cast<const int64_t*>(ptr), static_cast<const int32_t*>(dk),
+      static_cast<const int32_t*>(chan_pb), n_slices, n_groups, n_off,
+      maxu, n_vars, n_cp, words);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -17,6 +17,7 @@ from .config import resolve_device
 from .linsolve.block_offset import OffsetLayout, OffsetMatrix, PallasGroup
 from .linsolve.multigrid import MGHierarchy, hierarchy_for_domain
 from .linsolve.spmv import SparseMatrix
+from .linsolve.twofloat import DF, df_to_f64
 
 
 def _as_layout(layout) -> OffsetLayout:
@@ -88,6 +89,24 @@ def load_reference_state(dom, x: Optional[np.ndarray] = None,
         dom.dt = float(dt)
 
 
+def _df_tree(tree, device):
+    """A nest of dicts and lists with pair leaves (anything with ``hi``
+    and ``lo``) and array leaves, as the port's DF pairs and tensors on
+    ``device`` (integer arrays as int64)."""
+    if hasattr(tree, "hi") and hasattr(tree, "lo"):
+        return DF(*(torch.tensor(np.asarray(w), dtype=torch.float32,
+                                 device=device) for w in (tree.hi, tree.lo)))
+    if isinstance(tree, dict):
+        return {k: _df_tree(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_df_tree(v, device) for v in tree]
+    if tree is None:
+        return None
+    a = np.asarray(tree)
+    return torch.tensor(a.astype(np.int64) if a.dtype.kind in "iu" else a,
+                        device=device)
+
+
 def load_reference_freezes(dom, k_linear_td: Optional[np.ndarray] = None,
                            refined: Optional[Dict[str, np.ndarray]] = None,
                            mg_frozen=None, mg_hier=None) -> None:
@@ -97,7 +116,10 @@ def load_reference_freezes(dom, k_linear_td: Optional[np.ndarray] = None,
     - ``k_linear_td``: the stacked linear tangent components
       [L+1, n_storage] (the reference's ``_k_linear_td``);
     - ``refined``: the reference's ``_refined`` with numpy ``A_hi``,
-      ``A_lo``, ``b_hi``, ``b_lo``; the port stores hi + lo in float64
+      ``A_lo``, ``b_hi``, ``b_lo`` and, optionally, ``bnd_dofs`` and
+      ``wp_df`` (its tables with numpy leaves, each pair any object with
+      ``hi`` and ``lo``); the port stores hi + lo in float64 for its
+      float64 mode, keeps the pairs themselves for its two-float mode,
       and builds its own float64 tables of the nonaffine remainder;
     - ``mg_frozen``: the reference's ``_mg_frozen`` with numpy leaves, a
       sequence of per-level dicts whose level-0 ``"A"`` holds ``vals``;
@@ -108,15 +130,22 @@ def load_reference_freezes(dom, k_linear_td: Optional[np.ndarray] = None,
         dom._k_linear_td = torch.tensor(np.asarray(k_linear_td),
                                         dtype=dom.dtype, device=dev)
     if refined is not None:
-        f64 = torch.float64
+        def f32(a):
+            return torch.tensor(np.asarray(a), dtype=torch.float32,
+                                device=dev)
 
-        def pair(hi, lo):
-            return (torch.tensor(np.asarray(refined[hi]), dtype=f64,
-                                 device=dev)
-                    + torch.tensor(np.asarray(refined[lo]), dtype=f64,
-                                   device=dev))
-        dom._refined = {"A": pair("A_hi", "A_lo"), "b": pair("b_hi", "b_lo"),
-                        "wp": dom._refined_tables()}
+        words = {k: f32(refined[k])
+                 for k in ("A_hi", "A_lo", "b_hi", "b_lo")}
+        rec = dom._refined_record(
+            df_to_f64(DF(words["A_hi"], words["A_lo"])),
+            df_to_f64(DF(words["b_hi"], words["b_lo"])))
+        rec.update(words)
+        if refined.get("bnd_dofs") is not None:
+            rec["bnd_dofs"] = torch.tensor(
+                np.asarray(refined["bnd_dofs"]).astype(np.int64), device=dev)
+        if refined.get("wp_df") is not None:
+            rec["wp_df"] = _df_tree(refined["wp_df"], dev)
+        dom._refined = rec
     if mg_frozen is not None:
         levels = []
         for entry in mg_frozen:

@@ -372,11 +372,12 @@ class OffsetMatrix:
                 self.vals.device)
         return plans[by]
 
-    def pack_plans(self) -> list:
+    def pack_plans(self, vec: int = None) -> list:
         """One ``offset_spmv.PackPlan`` per dense group for vals' device
-        and float width, built from ``structural_mask`` once per layout,
-        device and width."""
-        vec = offset_spmv.VEC_BYTES // self.vals.element_size()
+        and float width (or ``vec`` slots per load: the two-float product
+        takes the float64 plan), built from ``structural_mask`` once per
+        layout, device and width."""
+        vec = vec or offset_spmv.VEC_BYTES // self.vals.element_size()
         plans = self._tables()["pack_plans"]
         if vec not in plans:
             keep = self.structural_mask()

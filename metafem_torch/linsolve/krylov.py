@@ -39,27 +39,9 @@ import numpy as np
 import torch
 from scipy.linalg import solve_triangular
 
+from .twofloat import two_prod as _two_prod
+
 _BLOCK = 1024
-#: Veltkamp's split constant for the 24-bit float32 mantissa (2^12 + 1)
-_SPLIT = 4097.0
-
-
-def _two_prod(a: torch.Tensor, b: torch.Tensor):
-    """Error-free product a*b = p + err in float32 (Dekker's splitting;
-    the reference's ``twofloat.two_prod``).  Every step is its own eager
-    op, so each product is rounded to float32 before the next
-    subtraction: no compiler can contract ``ah*bh - p`` into an FMA,
-    which would break the transform.  Do not wrap in torch.compile."""
-    p = a * b
-    ca = a * _SPLIT
-    cb = b * _SPLIT
-    ah = ca - (ca - a)
-    bh = cb - (cb - b)
-    al = a - ah
-    bl = b - bh
-    e = (((ah * bh) - p) + (ah * bl)) + (al * bh)
-    e = e + al * bl
-    return p, e
 
 
 def _block_sum(v: torch.Tensor) -> torch.Tensor:

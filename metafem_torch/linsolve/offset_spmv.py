@@ -48,6 +48,17 @@ block-offset storage, is the oracle the packed product is held to.  The
 kernel is built with nvcc for sm_90a into a plain-C shared library
 (metafem_torch/_build/) at first use and called through ctypes on the
 current CUDA stream.  ``group_mv.launches`` counts kernel launches.
+
+The two-float product (``twofloat.df_offset_mv``, the refined step's
+``df32`` residual) runs over the float64 plan: ``pack_df`` packs the
+(hi, lo) words of each structural entry side by side, so a 16-byte load
+holds two entries, as for float64.  ``group_mv_df`` launches the
+two-float kernel on CUDA tensors (``group_mv_df.launches``) and runs
+``group_mv_df_plain`` on CPU tensors; ``group_mv_df_dense``, the
+reference's formula over the block-offset storage, is its oracle.  A
+row sums each unit's entries into a fresh pair with df_add, then adds
+the unit's sum into the row's (``twofloat.py``); the transforms round
+every step, so the kernel and its plain version give the same bits.
 """
 
 from __future__ import annotations
@@ -60,6 +71,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..buildlib import build_cuda
+from . import twofloat as tf
 
 #: rows per sorting window of the pack plan (a multiple of SLICE): rows
 #: are sorted by length within a window, so a slice's rows lie close
@@ -69,6 +81,9 @@ WINDOW = 4096
 SLICE = 32
 #: bytes per vector load of the packed values
 VEC_BYTES = 16
+#: slots per load of the two-float product: the float64 plan, each slot
+#: an (hi, lo) pair of float32
+DF_VEC = 2
 
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -78,9 +93,11 @@ def load_library() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         lib = ctypes.CDLL(build_cuda("offset_spmv"))
-        for name in ("offset_spmv_packed_f64", "offset_spmv_packed_f32"):
+        for name, n_ptr in (("offset_spmv_packed_f64", 10),
+                            ("offset_spmv_packed_f32", 10),
+                            ("offset_spmv_packed_df", 12)):
             fn = getattr(lib, name)
-            fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int64] * 7
+            fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int64] * 7
                            + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
         _LIB = lib
@@ -428,6 +445,45 @@ def group_mv_packed_plain(packed: torch.Tensor, xw: torch.Tensor,
     return out
 
 
+def _check_group_args(packed: torch.Tensor, xws, outs, plan: PackPlan,
+                      packed_shape: tuple, slot_bytes: int) -> None:
+    """The checks of a group product's arguments: shapes against the
+    plan, one float type, the plan's load width, one device, contiguity.
+    ``xws`` and ``outs``: the x windows and destinations (one each, or the
+    two words of a pair)."""
+    grp = plan.group
+    C, n_cp = grp.n_vars, grp.n_cp
+    dev = xws[0].device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"group products run on cuda or cpu, not {dev}")
+    if tuple(packed.shape) != packed_shape:
+        raise ValueError(f"packed {tuple(packed.shape)} != {packed_shape}")
+    for xw in xws:
+        if tuple(xw.shape) != (C, n_cp):
+            raise ValueError(f"x window {tuple(xw.shape)} != {(C, n_cp)}")
+    for out in outs:
+        if tuple(out.shape) != (C, n_cp):
+            raise ValueError(f"out {tuple(out.shape)} != {(C, n_cp)}")
+    types = {t.dtype for t in (packed, *xws, *outs)}
+    if len(types) != 1:
+        raise TypeError(f"dtype mismatch: packed {packed.dtype}, x "
+                        f"{[x.dtype for x in xws]}, out "
+                        f"{[o.dtype for o in outs]}")
+    if plan.vec * slot_bytes != VEC_BYTES:
+        raise TypeError(f"a plan of {plan.vec} slots per load does not "
+                        f"fit {packed.dtype}")
+    if any(t.device != plan.rows.device for t in (packed, *xws, *outs)):
+        raise ValueError("packed, x, out and the plan must lie on one "
+                         "device")
+    if not all(t.is_contiguous() for t in (packed, *xws, *outs)):
+        raise ValueError("group products need contiguous tensors")
+
+
+def _launch_check(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
 def group_mv(packed: torch.Tensor, xw: torch.Tensor, plan: PackPlan,
              out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """y [C, n_cp] of one dense group.  ``packed``: the group's values
@@ -436,29 +492,10 @@ def group_mv(packed: torch.Tensor, xw: torch.Tensor, plan: PackPlan,
     aliasing xw or packed)."""
     grp = plan.group
     C, n_cp = grp.n_vars, grp.n_cp
-    if xw.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"group_mv runs on cuda or cpu, not {xw.device}")
-    if tuple(packed.shape) != (plan.n_packed,):
-        raise ValueError(f"packed {tuple(packed.shape)} != "
-                         f"({plan.n_packed},)")
-    if tuple(xw.shape) != (C, n_cp):
-        raise ValueError(f"x window {tuple(xw.shape)} != {(C, n_cp)}")
     if out is None:
         out = torch.empty((C, n_cp), dtype=xw.dtype, device=xw.device)
-    elif tuple(out.shape) != (C, n_cp):
-        raise ValueError(f"out {tuple(out.shape)} != {(C, n_cp)}")
-    if not (packed.dtype == xw.dtype == out.dtype):
-        raise TypeError(f"dtype mismatch: packed {packed.dtype}, x "
-                        f"{xw.dtype}, out {out.dtype}")
-    if plan.vec * packed.element_size() != VEC_BYTES:
-        raise TypeError(f"a plan of {plan.vec} slots per load does not "
-                        f"fit {packed.dtype}")
-    if not (packed.device == xw.device == out.device == plan.rows.device):
-        raise ValueError("packed, x, out and the plan must lie on one "
-                         "device")
-    if not (packed.is_contiguous() and xw.is_contiguous()
-            and out.is_contiguous()):
-        raise ValueError("group_mv needs contiguous tensors")
+    _check_group_args(packed, (xw,), (out,), plan, (plan.n_packed,),
+                      packed.element_size())
     if xw.device.type == "cpu":
         return group_mv_packed_plain(packed, xw, plan, out)
     if xw.dtype == torch.float64:
@@ -476,9 +513,7 @@ def group_mv(packed: torch.Tensor, xw: torch.Tensor, plan: PackPlan,
                  plan.ptr.data_ptr(), plan.dk.data_ptr(),
                  plan.chan_pb.data_ptr(), plan.n_slices, plan.n_groups,
                  grp.n_off, plan.maxu, C, n_cp, plan.words, stream)
-    if err != 0:
-        raise RuntimeError(f"offset_spmv kernel launch failed: CUDA error "
-                           f"{err}")
+    _launch_check(err, "offset_spmv")
     group_mv.launches += 1
     group_mv.launches_by_dtype[xw.dtype] += 1
     return out
@@ -489,7 +524,139 @@ group_mv.launches = 0
 group_mv.launches_by_dtype = {torch.float32: 0, torch.float64: 0}
 
 
+# ---------------------------------------------------------------------------
+# the two-float product
+# ---------------------------------------------------------------------------
+
+def group_mv_df_dense(slab: tf.DF, xw: tf.DF, group) -> tf.DF:
+    """The reference's two-float formula (``twofloat.df_offset_mv``, one
+    dense group) in plain PyTorch over the block-offset storage: per unit
+    a fresh pair summed with df_add over all n_off offsets, then the
+    unit's sum df_added into its channel's.  ``slab``: the pair's words
+    as [G, n_off, n_cp]; ``xw``: x's words as [C, n_cp].  Returns y's
+    words as [C, n_cp].  The oracle of ``group_mv_df``."""
+    sh_hi = shifted_stack(xw.hi, group.offsets)
+    sh_lo = shifted_stack(xw.lo, group.offsets)
+    zero = torch.zeros_like(xw.hi[0])
+    acc = [None] * group.n_vars
+    for g, (pd, pb) in enumerate(group.units):
+        a = tf.DF(zero, zero)
+        for k in range(group.n_off):
+            vh, vl = slab.hi[g, k], slab.lo[g, k]
+            p, e = tf.two_prod(vh, sh_hi[k, pb])
+            e = e + ((vh * sh_lo[k, pb]) + (vl * sh_hi[k, pb]))
+            a = tf.df_add(a, tf.DF(p, e))
+        acc[pd] = a if acc[pd] is None else tf.df_add(acc[pd], a)
+    return tf.DF(*(torch.stack([zero if a is None else getattr(a, w)
+                                for a in acc]) for w in ("hi", "lo")))
+
+
+def pack_df(hi_slab: torch.Tensor, lo_slab: torch.Tensor,
+            plan: PackPlan) -> torch.Tensor:
+    """The packed pair of one group over a float64 plan (``DF_VEC`` slots
+    per load): float32 [n_packed, 2], slot s holding (hi, lo) of its
+    entry, padding zeroed."""
+    if plan.vec != DF_VEC:
+        raise ValueError(f"the two-float product packs over the float64 "
+                         f"plan ({DF_VEC} slots per load), not {plan.vec}")
+    return torch.stack([pack(hi_slab, plan), pack(lo_slab, plan)], dim=1)
+
+
+def group_mv_df_plain(packed: torch.Tensor, xw_hi: torch.Tensor,
+                      xw_lo: torch.Tensor, plan: PackPlan,
+                      out_hi: torch.Tensor, out_lo: torch.Tensor) -> tuple:
+    """Plain PyTorch version of the two-float kernel over the same plan:
+    the (p, e) terms of every packed slot, then, slot group by slot
+    group, each row's walk: df_add into the unit's pair, and at each
+    unit's end (every ``ceil(L / 2)`` groups) the unit's pair df_added
+    into the row's.  A row takes part only in its own slot groups, as
+    in the kernel: a short row of a long slice leaves the slice's
+    trailing groups alone."""
+    v = plan.vec
+    cols = packed_columns(plan)
+    vh, vl = packed[:, 0], packed[:, 1]
+    xh = xw_hi.reshape(-1)[cols]
+    xl = xw_lo.reshape(-1)[cols]
+    p, e = tf.two_prod(vh, xh)
+    e = e + ((vh * xl) + (vl * xh))
+    del cols, xh, xl
+    n_q = plan.rows.numel()
+    meta = plan.meta.long()
+    L = plan.list_len.long()[meta >> 8]
+    n_unit = ((L + v - 1) // v).clamp(min=1)      # slot groups per unit
+    n_own = _popcount(meta & 0xFF, plan.maxu) * ((L + v - 1) // v)
+    del meta, L
+    z = torch.zeros(n_q, dtype=packed.dtype, device=packed.device)
+    row_hi, row_lo, unit_hi, unit_lo = z, z.clone(), z.clone(), z.clone()
+    ptr = plan.ptr_host
+    for m in range(plan.n_groups):
+        bp = p[ptr[m]:ptr[m + 1]].view(-1, v)
+        be = e[ptr[m]:ptr[m + 1]].view(-1, v)
+        n = bp.shape[0]
+        own = m < n_own[:n]
+        if m:
+            fold = own & ((m % n_unit[:n]) == 0)
+            s = tf.df_add(tf.DF(row_hi[:n], row_lo[:n]),
+                          tf.DF(unit_hi[:n], unit_lo[:n]))
+            row_hi[:n] = torch.where(fold, s.hi, row_hi[:n])
+            row_lo[:n] = torch.where(fold, s.lo, row_lo[:n])
+            unit_hi[:n] = torch.where(fold, 0.0, unit_hi[:n])
+            unit_lo[:n] = torch.where(fold, 0.0, unit_lo[:n])
+        for t in range(v):
+            u = tf.df_add(tf.DF(unit_hi[:n], unit_lo[:n]),
+                          tf.DF(bp[:, t], be[:, t]))
+            unit_hi[:n] = torch.where(own, u.hi, unit_hi[:n])
+            unit_lo[:n] = torch.where(own, u.lo, unit_lo[:n])
+    y = tf.df_add(tf.DF(row_hi, row_lo), tf.DF(unit_hi, unit_lo))
+    rows = plan.rows.long()
+    real = rows >= 0
+    out_hi.view(-1)[rows[real]] = y.hi[real]
+    out_lo.view(-1)[rows[real]] = y.lo[real]
+    return out_hi, out_lo
+
+
+def group_mv_df(packed: torch.Tensor, xw_hi: torch.Tensor,
+                xw_lo: torch.Tensor, plan: PackPlan,
+                out_hi: Optional[torch.Tensor] = None,
+                out_lo: Optional[torch.Tensor] = None) -> tuple:
+    """(y_hi, y_lo), each [C, n_cp], of one dense group in two-float
+    arithmetic.  ``packed``: the pair packed through the group's float64
+    plan (``pack_df``); ``xw_hi``/``xw_lo``: x's words as [C, n_cp];
+    ``out_hi``/``out_lo``: optional contiguous destinations (not
+    aliasing the inputs).  On CUDA tensors the kernel or an error; on
+    CPU tensors the plain version."""
+    grp = plan.group
+    C, n_cp = grp.n_vars, grp.n_cp
+    outs = [torch.empty((C, n_cp), dtype=xw_hi.dtype, device=xw_hi.device)
+            if o is None else o for o in (out_hi, out_lo)]
+    _check_group_args(packed, (xw_hi, xw_lo), outs, plan,
+                      (plan.n_packed, 2), 2 * packed.element_size())
+    if xw_hi.dtype != torch.float32:
+        raise TypeError(f"group_mv_df takes float32 words, not "
+                        f"{xw_hi.dtype}")
+    if xw_hi.device.type == "cpu":
+        return group_mv_df_plain(packed, xw_hi, xw_lo, plan, *outs)
+    with torch.cuda.device(xw_hi.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = load_library().offset_spmv_packed_df(
+            packed.data_ptr(), xw_hi.data_ptr(), xw_lo.data_ptr(),
+            outs[0].data_ptr(), outs[1].data_ptr(),
+            plan.rows.data_ptr(), plan.meta.data_ptr(),
+            plan.codes.data_ptr(), plan.list_len.data_ptr(),
+            plan.ptr.data_ptr(), plan.dk.data_ptr(),
+            plan.chan_pb.data_ptr(), plan.n_slices, plan.n_groups,
+            grp.n_off, plan.maxu, C, n_cp, plan.words, stream)
+    _launch_check(err, "offset_spmv_packed_df")
+    group_mv_df.launches += 1
+    return tuple(outs)
+
+
+#: two-float kernel launches
+group_mv_df.launches = 0
+
+
 def reset_launches() -> None:
     group_mv.launches = 0
     for k in group_mv.launches_by_dtype:
         group_mv.launches_by_dtype[k] = 0
+    group_mv_df.launches = 0

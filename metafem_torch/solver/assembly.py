@@ -17,8 +17,10 @@ Two functions are built (compile_Updater_GPU, 05_CodeGenerator.jl:265-291):
 time step; ``res_k_nonlinear(state)`` assembles the residual and the
 state-dependent gradient blocks every Newton iteration, on top of the
 cached linear part.  ``run_phase(state, phase)`` runs any phase of
-``_phase_parts``, which the freezes and the refined step use; the
-two-float residual phases are not ported.
+``_phase_parts``, which the freezes and the refined step use.  A phase
+name ending in ``_df`` (``nonaff_res_df``) evaluates that phase's
+residues in two-float arithmetic (df_lowering.py) and reduces them
+exactly (``_reduce_df``): the refined step's ``df32`` residual mode.
 """
 
 from __future__ import annotations
@@ -31,15 +33,18 @@ import torch
 
 from ..elements.discretization import (ClassicalDiscretization,
                                        sd_ids_to_mode)
+from ..linsolve import twofloat as tf
 from ..symbolics.registry import (CONTROLPOINT_VAR, GLOBAL_VAR,
                                   INTEGRATION_POINT_VAR)
 from ..symbolics.tensor_table import TensorTable
 from .global_assembly import GlobalPattern, WPGlobalInfo
-from .lattice_reduce import gather_lattice_nodes, scan_apply_group
+from .df_lowering import DFLoweringContext, assemble_part_df, build_env_df
+from .lattice_reduce import (gather_lattice_nodes, scan_apply_group,
+                             scan_apply_group_df)
 from .local_assembly import (AssembleBilinear, AssembleWeakform,
                              ExtervarInfo, InnervarInfo, LocalAssembly)
 from .lowering import LoweringContext
-from .scatter import apply_device_maps
+from .scatter import apply_device_maps, apply_device_maps_df
 
 
 @dataclasses.dataclass
@@ -168,8 +173,10 @@ def _phase_parts(wf: AssembleWeakform, phase: str):
     f64 affine operator A_td of the refined step); ``aff_res`` —
     residues of affine forms (evaluated at x=0 to freeze the constant
     part b); ``nonaff_nl`` — residues and nonlinear gradients of
-    nonaffine forms (the small per-refinement-iteration assembly).  The
-    two-float mode's ``nonaff_res`` and ``nl_grad`` are not ported."""
+    nonaffine forms (the small per-refinement-iteration assembly);
+    ``nonaff_res`` and ``nl_grad`` — its two halves, which the two-float
+    mode runs apart (the residues in two-float or compact float64, the
+    gradients in the working precision)."""
     if phase == "lin":
         return [], wf.linear_gradients
     if phase == "nl":
@@ -182,10 +189,10 @@ def _phase_parts(wf: AssembleWeakform, phase: str):
     if phase == "nonaff_nl":
         return ([r for r in wf.residues if r.form_id not in aff],
                 wf.nonlinear_gradients)
-    if phase in ("nonaff_res", "nl_grad"):
-        raise NotImplementedError(
-            f"assembly phase {phase!r} belongs to the two-float residual "
-            "mode, not ported yet (ROADMAP.md section 1, item 3)")
+    if phase == "nonaff_res":
+        return [r for r in wf.residues if r.form_id not in aff], []
+    if phase == "nl_grad":
+        return [], wf.nonlinear_gradients
     raise ValueError(f"unknown assembly phase {phase!r}")
 
 
@@ -250,6 +257,50 @@ def collect_phase_slots(compiled_wps: List[CompiledWP],
             np.concatenate(k) if k else None)
 
 
+def _reduce_df(r_vals: List[tf.DF], fast_r: dict, total: int,
+               device_maps: dict, dev) -> tf.DF:
+    """Two-float residual reduction: per-stream DF contribution pairs to
+    a DF global residual.  Lattice columns are placed exactly and
+    df_added in list order (``scan_apply_group_df``); the other columns
+    reduce through the compensated gather maps
+    (``apply_device_maps_df``), over the touched rows where the map is
+    compact."""
+    z = torch.zeros(total, dtype=torch.float32, device=dev)
+    residue = tf.DF(z, z.clone())
+    pairs, rest = [], []
+    for si, v in enumerate(r_vals):
+        entry = fast_r.get(si)
+        if entry is None:
+            rest.append(tf.DF(v.hi.reshape(-1), v.lo.reshape(-1)))
+            continue
+        fs_list, rest_cols = entry
+        B = v.hi.shape[0]
+        vf = tf.DF(v.hi.reshape(B, -1), v.lo.reshape(B, -1))
+        pairs.extend((tf.DF(vf.hi[:, fs.col], vf.lo[:, fs.col]), fs)
+                     for fs in fs_list)
+        if rest_cols.size:
+            cols = device_maps["rest_cols"]["r", si]
+            rest.append(tf.DF(vf.hi[:, cols].reshape(-1),
+                              vf.lo[:, cols].reshape(-1)))
+    if pairs:
+        residue = scan_apply_group_df(residue, pairs)
+    if not rest:
+        return residue
+    data = tf.DF(torch.cat([d.hi for d in rest]),
+                 torch.cat([d.lo for d in rest]))
+    touched = device_maps.get("r_touched")
+    if touched is None:
+        return tf.df_add(residue, apply_device_maps_df(
+            device_maps.get("r"), data, total))
+    compact = apply_device_maps_df(device_maps.get("r"), data,
+                                   touched.shape[0])
+    new = tf.df_add(tf.DF(residue.hi[touched], residue.lo[touched]),
+                    compact)
+    residue.hi[touched] = new.hi
+    residue.lo[touched] = new.lo
+    return residue
+
+
 def make_updaters(tb: TensorTable, compiled_wps: List[CompiledWP],
                   pattern: GlobalPattern,
                   functions: Dict[str, object],
@@ -268,8 +319,18 @@ def make_updaters(tb: TensorTable, compiled_wps: List[CompiledWP],
     bfs = pattern.basicfield_size
 
     def _run(state, phase: str):
+        """(residue, K) of one phase.  ``<phase>_df``: the phase's
+        residues in two-float arithmetic from DF tables (``state["wp"]``)
+        and a DF ``x_star``, returned as a DF residue and a 0-d K.
+        ``state["r_compact"]``: the residue over the phase's touched rows
+        only (``maps[phase]["r_touched"]``, the caller expands it) and a
+        0-d K; for phases without lattice residual streams."""
+        df_mode = phase.endswith("_df")
+        if df_mode:
+            phase = phase[:-3]
         x_star = state["x_star"]
-        dtype, dev = x_star.dtype, x_star.device
+        dev = x_star.hi.device if df_mode else x_star.device
+        dtype = torch.float32 if df_mode else x_star.dtype
         t, dt, K_params = state["t"], state["dt"], state["K_params"]
         global_vars = state.get("global_vars", {})
 
@@ -282,6 +343,9 @@ def make_updaters(tb: TensorTable, compiled_wps: List[CompiledWP],
 
             def do_wf(wf: AssembleWeakform, part_state, is_boundary):
                 res_bils, grad_bils = _phase_parts(wf, phase)
+                if df_mode and grad_bils:
+                    raise ValueError(f"two-float phases evaluate residues "
+                                     f"only; {phase!r} has gradients")
                 if phase in ("lin", "aff_lin"):
                     inner_infos: List[InnervarInfo] = []
                     exter_infos = wf.linear_extervar_infos
@@ -293,6 +357,19 @@ def make_updaters(tb: TensorTable, compiled_wps: List[CompiledWP],
                 gather_fast = None
                 if not is_boundary:
                     gather_fast = fast_maps.get("gather", {}).get(w_i)
+                if df_mode:
+                    env = build_env_df(tb, wp_state, part_state, cw,
+                                       inner_infos, exter_infos, x_star,
+                                       t, dt, global_vars, is_boundary,
+                                       gather_fast=gather_fast)
+                    ctx = DFLoweringContext(tb, env, functions,
+                                            user_state=state.get("user"),
+                                            device=dev)
+                    res_contribs = assemble_part_df(tb, cw, part_state,
+                                                    res_bils, ctx)
+                    for pos in sorted(res_contribs):
+                        r_vals.append(res_contribs[pos])   # DF [B, na]
+                    return
                 env = _build_env(tb, wp_state, part_state, cw, inner_infos,
                                  exter_infos, x_star, t, dt, global_vars,
                                  is_boundary, gather_fast=gather_fast)
@@ -312,6 +389,20 @@ def make_updaters(tb: TensorTable, compiled_wps: List[CompiledWP],
 
         device_maps = state["maps"][phase]
         fast = fast_maps.get(phase, {})
+        if df_mode:
+            return (_reduce_df(r_vals, fast.get("r", {}), bfs, device_maps,
+                               dev),
+                    torch.zeros((), dtype=dtype, device=dev))
+        if state.get("r_compact") and "r_touched" in device_maps:
+            if fast.get("r"):
+                raise ValueError(f"r_compact: phase {phase!r} has lattice "
+                                 f"residual streams")
+            n_touched = device_maps["r_touched"].shape[0]
+            data = (torch.cat([v.reshape(-1) for v in r_vals]) if r_vals
+                    else torch.zeros(0, dtype=dtype, device=dev))
+            return (apply_device_maps(device_maps.get("r"), data,
+                                      n_touched),
+                    torch.zeros((), dtype=dtype, device=dev))
 
         def reduce_streams(vals_list, fast_dict, kind, total):
             """Strided lattice adds for the fitting columns, in list

@@ -42,8 +42,16 @@ User callbacks and history state (the J2 example):
     dom.user_state = {"ep": ep0, "Y": Y0}          # moved to the device
     e11 = dom.evaluate_at_itg(wp, dom.sym("e")[1, 1])   # [n_el, n_itg]
 
-Not ported yet: the two-float residual mode, the auxiliary-space
-multigrid, freeze persistence and checkpoints.
+The reference's production mode on its TPU, two-float residuals, is
+opt-in on a float32 domain:
+
+    step = dom.make_refined_step(sv_func=krylov.chebyshev,
+                                 residual_mode="df32")
+    x_df, dx, res, refines = step(dom._runtime_state(),
+                                  twofloat.df_from_f64(x), t, dt)
+
+Not ported yet: the auxiliary-space multigrid, freeze persistence and
+checkpoints.
 """
 
 from __future__ import annotations
@@ -71,6 +79,7 @@ from ..symbolics.tensor_table import TensorTable
 from ..symbolics.weakform import BilinearForm, build_weakform
 from .assembly import (CompiledWP, _build_env, collect_phase_streams,
                        make_updaters)
+from .df_lowering import df_tables
 from .geometry import update_element_geometry, update_facet_geometry
 from .global_assembly import (GlobalPattern, assemble_x, build_global_pattern,
                               dessemble_x)
@@ -574,6 +583,13 @@ class FEM_Domain:
         tensors.  The float64 volume tables are freed afterwards unless
         a volume form is nonaffine (then the remainder needs them).
 
+        For the two-float mode of the refined step it also records
+        ``bnd_dofs``, the DOF rows the boundary elements read (None when
+        a volume form is nonaffine), and, on a float32 domain with a
+        nonaffine volume form, ``wp_df``: the float64 tables split into
+        DF pairs (``df_lowering.df_tables``).  The DF split of A_td and
+        b is made at the first two-float step and kept here.
+
         Same validity contract as freeze_linear_tangent."""
         self._ensure_device_maps("aff_lin", "aff_res", "nonaff_nl")
         f64 = torch.float64
@@ -593,8 +609,47 @@ class FEM_Domain:
         st["K_params"] = self._tensor(np.ones(L + 1), f64)
         b64 = self._run_phase(st, "aff_res")[0]
         del st
-        self._refined = {"A": torch.stack(A_list), "b": b64,
-                         "wp": self._refined_tables(wp64)}
+        self._refined = self._refined_record(torch.stack(A_list), b64,
+                                             wp64)
+
+    def _vol_nonaffine(self) -> bool:
+        """True when a volume weak form has a nonaffine residue."""
+        return any(
+            wp.local_assembly.assembled_weakform.affine_form_ids()
+            != {r.form_id
+                for r in wp.local_assembly.assembled_weakform.residues}
+            for wp in self.workpieces)
+
+    def _refined_record(self, A: torch.Tensor, b: torch.Tensor,
+                        wp64: Optional[list] = None) -> dict:
+        """The frozen operator of the refined step: float64 A_td and b,
+        the float64 tables of its nonaffine remainder, and the two-float
+        mode's ``bnd_dofs`` and ``wp_df``."""
+        wp = self._refined_tables(wp64)
+        vol_nonaff = self._vol_nonaffine()
+        wp_df = None
+        if vol_nonaff and self.dtype == torch.float32:
+            wp_df = df_tables(wp)
+        return {"A": A, "b": b, "wp": wp, "wp_df": wp_df,
+                "bnd_dofs": None if vol_nonaff else self._boundary_dofs()}
+
+    def _boundary_dofs(self) -> torch.Tensor:
+        """The DOF rows the boundary elements read (the union of their
+        control points over every variable), sorted, int64 on the
+        device: the two-float step evaluates the boundary-only nonaffine
+        remainder in float64 at these rows only."""
+        dofs = []
+        for wp, info in zip(self.workpieces, self.pattern.wp_infos):
+            cps = [els for parts in wp.bdy_parts.values()
+                   for (_, els) in parts]
+            if not cps:
+                continue
+            cp_set = np.unique(wp.mesh.el_cp[np.concatenate(cps)].reshape(-1))
+            for pos in range(info.n_vars):
+                dofs.append(info.dof_offset + pos * info.n_cp + cp_set)
+        rows = (np.unique(np.concatenate(dofs)) if dofs
+                else np.zeros(0, np.int64))
+        return torch.as_tensor(rows.astype(np.int64), device=self.device)
 
     def _f64_tables(self, volume: bool = True) -> list:
         """float64 geometry tables and fields on the domain's device."""
@@ -608,11 +663,7 @@ class FEM_Domain:
         reads.  When every volume form is affine the remainder is
         boundary-only: the float64 volume tables are dropped and the
         (unused) volume entry points at the working-precision ones."""
-        vol_nonaff = any(
-            wp.local_assembly.assembled_weakform.affine_form_ids()
-            != {r.form_id
-                for r in wp.local_assembly.assembled_weakform.residues}
-            for wp in self.workpieces)
+        vol_nonaff = self._vol_nonaffine()
         if wp64 is None:
             wp64 = self._f64_tables(volume=vol_nonaff)
         if vol_nonaff:

@@ -1,17 +1,19 @@
 """Newton steps with the whole step in one call: ``make_jitted_step``
 (assembled residuals, right-Jacobi or multigrid Krylov solves) and the
-refined step ``make_refined_step`` (exact float64 residuals,
-working-precision multigrid solves).
+refined step ``make_refined_step`` (exact residuals, working-precision
+multigrid solves).
 
 Port of ``metafem/solver/jit_step.py``.  The reference stages each step
 as one jitted ``lax.while_loop``; in PyTorch each is a host loop over
 device tensors that reads one residual norm back per Newton (or refine)
 iteration, and keeps the names of the reference so that a reader finds
-the counterpart.  The refined step is ported in its
-``residual_mode="f64"``: the card computes float64 natively, so ``x`` is
-carried in float64 between steps (the two-float carry of the
-reference's ``df32`` mode, which exists for the TPU's emulated float64,
-is not ported).
+the counterpart.  The refined step has both of the reference's residual
+modes.  ``"f64"`` is the default: the card computes float64 natively,
+so ``x`` is carried in float64 between steps.  ``"df32"``, the
+reference's production mode on its TPU (whose float64 is emulated),
+carries ``x``, A_td and b as two-float pairs (linsolve/twofloat.py) on a
+float32 domain; each A_td product runs the two-float SpMV kernel on the
+card.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch
 
 from ..config import device_constant
 from ..linsolve import krylov
+from ..linsolve import twofloat as tf
 from ..linsolve.block_offset import OffsetMatrix
 from ..linsolve.precond import pr_jacobi
 from .time_domain import initialize_dx, x_star_of
@@ -194,7 +197,7 @@ def make_refined_step(domain, sv_func: Callable = krylov.bicgstab,
     Builds ``step(state, x, t, dt) -> (x_new, dx, res, n_refines)``.
     Every iteration:
 
-    1. the float64 residual from the frozen affine decomposition
+    1. the exact residual from the frozen affine decomposition
        (``domain.freeze_refined_residual``): SpMVs against A_td and b
        plus the small nonaffine boundary remainder;
     2. the tangent = frozen linear part (``freeze_linear_tangent``) +
@@ -206,19 +209,27 @@ def make_refined_step(domain, sv_func: Callable = krylov.bicgstab,
     The loop stops below ``domain.converge_tol``, after ``max_refine``
     iterations, or when the residual falls by less than ``stall_ratio``.
     With ``sv_func=krylov.chebyshev`` the trip count comes from the
-    Chebyshev rate that ``setup_mg()`` measured."""
+    Chebyshev rate that ``setup_mg()`` measured.
+
+    ``residual_mode``: ``"f64"`` (the default, also for None) carries x
+    and the residual in float64.  ``"df32"`` (float32 domains only)
+    carries them as two-float pairs: the A_td products through
+    ``twofloat.df_offset_mv``, a nonaffine volume's residues in two-float
+    arithmetic (``nonaff_res_df``), a boundary-only remainder in float64
+    over the boundary rows (``bnd_dofs``, compact ``nonaff_res``), the
+    nonaffine tangent blocks in float32 at x's high word (``nl_grad``).
+    A ``twofloat.DF`` x gives a DF x back; a tensor x is split on entry
+    and the results come back in float64."""
     if domain._refined is None:
         raise RuntimeError("call domain.freeze_refined_residual() first")
     if domain._k_linear_td is None:
         raise RuntimeError("call domain.freeze_linear_tangent() first")
     if residual_mode is None:
         residual_mode = "f64"
-    if residual_mode == "df32":
-        raise NotImplementedError(
-            "residual_mode='df32' (two-float residuals) is not ported yet "
-            "(ROADMAP.md section 1, item 3)")
-    if residual_mode != "f64":
+    if residual_mode not in ("f64", "df32"):
         raise ValueError(f"unknown residual_mode {residual_mode!r}")
+    if residual_mode == "df32" and domain.dtype != torch.float32:
+        raise ValueError("residual_mode='df32' expects a float32 domain")
     if rowshard_mesh is not None:
         raise NotImplementedError(
             "rowshard_mesh (multi-device row sharding) is not ported yet "
@@ -243,7 +254,8 @@ def make_refined_step(domain, sv_func: Callable = krylov.bicgstab,
     elif precond != "jacobi":
         raise ValueError(f"unknown precond {precond!r}")
 
-    domain._ensure_device_maps("nonaff_nl")
+    domain._ensure_device_maps(*(("nonaff_nl",) if residual_mode == "f64"
+                                 else ("nonaff_res", "nl_grad")))
     pattern = domain.pattern
     ga = domain.time_discretization
     gamma = tuple(ga.gamma_params)
@@ -301,6 +313,13 @@ def make_refined_step(domain, sv_func: Callable = krylov.bicgstab,
     def inner_tol(res_n: float) -> float:
         return float(max(s_np(tol), s_np(forcing) * s_np(res_n)))
 
+    if residual_mode == "df32":
+        step = _df32_step(domain, A_of, solve_f32, inner_tol, max_refine,
+                          stall_ratio, static_nl_tangent)
+        step.inner_solver = sv_func.__name__
+        step.inner_maxiter = maxiter
+        return step
+
     def step(state, x, t, dt):
         f64 = torch.float64
         x = x.to(f64)
@@ -348,4 +367,144 @@ def make_refined_step(domain, sv_func: Callable = krylov.bicgstab,
 
     step.inner_solver = sv_func.__name__
     step.inner_maxiter = maxiter        # the Chebyshev trip count
+    return step
+
+
+def _df_operator(ref: dict, layout) -> tuple:
+    """The frozen operator of the two-float mode: A_td and b as DF pairs
+    (split from the float64 freeze on its device at the first call, or
+    the pairs loaded from the reference) and each A_td's packed pair
+    (``twofloat.df_pack``), kept in the freeze's record."""
+    if "A_hi" not in ref:
+        A, b = tf.df_from_f64(ref["A"]), tf.df_from_f64(ref["b"])
+        ref.update(A_hi=A.hi, A_lo=A.lo, b_hi=b.hi, b_lo=b.lo)
+    A = [tf.DF(hi, lo) for hi, lo in zip(ref["A_hi"], ref["A_lo"])]
+    if "A_packed" not in ref:
+        ref["A_packed"] = [tf.df_pack(a, layout) for a in A]
+    return A, tf.DF(ref["b_hi"], ref["b_lo"]), ref["A_packed"]
+
+
+def _df32_step(domain, A_of, solve_f32, inner_tol, max_refine, stall_ratio,
+               static_nl_tangent):
+    """The refined step's ``df32`` branch (the reference's
+    ``jit_step.py:532-674``) as a host loop: x, dx and the residual as DF
+    pairs, the tangent and the solves in float32 (``A_of``,
+    ``solve_f32`` and ``inner_tol`` of ``make_refined_step``)."""
+    ga = domain.time_discretization
+    gamma = tuple(ga.gamma_params)
+    alpha = tuple(ga.alpha_params)
+    tol = float(domain.converge_tol)
+    pattern = domain.pattern
+    L = pattern.max_time_level
+    layout = pattern.offset_layout
+    run_phase = domain._run_phase
+    sqrt_n = math.sqrt(pattern.basicfield_size)
+    bfs = pattern.basicfield_size
+    f32, f64 = torch.float32, torch.float64
+    nonaff_maps = domain._device_maps["nonaff_res"]
+
+    def step(state, x, t, dt):
+        as_pair = isinstance(x, tf.DF)
+        xdf = x if as_pair else tf.df_from_f64(x.to(f64))
+        dev = xdf.hi.device
+        levels = L + 1
+        dt64 = float(dt)
+        prod_gamma = np.asarray([np.prod(gamma[:i]) for i in range(levels)],
+                                np.float64)
+        dt_pow = np.asarray([dt64 ** i for i in range(levels)], np.float64)
+        beta64 = 1.0 / (prod_gamma * dt_pow)
+        K_params64 = np.asarray(alpha[:levels], np.float64) * beta64
+        beta32 = device_constant(beta64.astype(np.float32), f32, dev)
+        K_params64_t = device_constant(K_params64, f64, dev)
+        K_params32_t = device_constant(K_params64.astype(np.float32), f32,
+                                       dev)
+        alpha32 = device_constant(np.float32(alpha[:levels]), f32, dev)
+
+        ref = state["refined"]
+        A_df, b_df, packed = _df_operator(ref, layout)
+        K_lin = combine_klin(state, K_params64.astype(np.float32))
+        dtp = tf.df_const(dt64, dev)
+
+        def df_initialize_dx(xp: tf.DF) -> tf.DF:
+            """The generalized-alpha predictor in DF arithmetic."""
+            dx_hi = torch.zeros_like(xp.hi)
+            dx_lo = torch.zeros_like(xp.lo)
+            for level in range(levels - 1, 0, -1):
+                row = tf.df_add(tf.DF(xp.hi[level], xp.lo[level]),
+                                tf.df_scale(tf.DF(dx_hi[level],
+                                                  dx_lo[level]),
+                                            float(gamma[level - 1])))
+                row = tf.df_scale_df(row, dtp)
+                dx_hi[level - 1] = row.hi
+                dx_lo[level - 1] = row.lo
+            return tf.DF(dx_hi, dx_lo)
+
+        def residual_and_knl(dxdf: tf.DF, with_grad=True):
+            xs = tf.df_add(xdf, tf.df_scale(dxdf, alpha32[:, None]))
+            r = b_df
+            for td in range(levels):
+                r = tf.df_add(r, tf.df_offset_mv(
+                    A_df[td], layout, tf.DF(xs.hi[td], xs.lo[td]),
+                    packed=packed[td]))
+            if ref["wp_df"] is not None:
+                # nonaffine volume: every nonaffine residue in two-float
+                # arithmetic over the frozen DF tables
+                st_df = {**state, "wp": ref["wp_df"], "x_star": xs,
+                         "K_params": K_params64_t, "t": float(t),
+                         "dt": dt64}
+                r = tf.df_add(r, run_phase(st_df, "nonaff_res_df")[0])
+            elif "r_touched" in nonaff_maps:
+                # boundary-only nonaffinity: float64 x* at the boundary
+                # rows only, the remainder over the touched rows, added
+                # into the pair there exactly
+                bnd = ref["bnd_dofs"]
+                xs64 = torch.zeros((levels, bfs), dtype=f64, device=dev)
+                xs64[:, bnd] = (xs.hi[:, bnd].to(f64)
+                                + xs.lo[:, bnd].to(f64))
+                st64 = {**state, "wp": ref["wp"], "x_star": xs64,
+                        "K_params": K_params64_t, "r_compact": True,
+                        "t": float(t), "dt": dt64}
+                r_nl_c = run_phase(st64, "nonaff_res")[0]
+                touched = nonaff_maps["r_touched"]
+                t_df = tf.df_from_f64(r.hi[touched].to(f64)
+                                      + r.lo[touched].to(f64) + r_nl_c)
+                r.hi[touched] = t_df.hi     # r is this call's own pair
+                r.lo[touched] = t_df.lo
+            elif "r" in nonaff_maps:
+                # a boundary remainder touching too many rows for a
+                # compact map: float64 over the whole vector
+                st64 = {**state, "wp": ref["wp"], "x_star": tf.df_to_f64(xs),
+                        "K_params": K_params64_t, "t": float(t),
+                        "dt": dt64}
+                r = tf.df_add(r, tf.df_from_f64(
+                    run_phase(st64, "nonaff_res")[0]))
+            if not with_grad:
+                return r, None
+            # the nonaffine tangent blocks in float32 at x's high word:
+            # the tangent sets the convergence rate, not the answer
+            st32 = {**state, "x_star": xs.hi, "K_params": K_params32_t}
+            return r, run_phase(st32, "nl_grad")[1]
+
+        def norm_n(r: tf.DF) -> float:
+            return float(torch.linalg.norm(r.hi)) / sqrt_n
+
+        dx = df_initialize_dx(xdf)
+        r, K_nl = residual_and_knl(dx)
+        res = norm_n(r)
+        res_prev = float(np.finfo(np.float32).max)
+        it = 0
+        while res > tol and it < max_refine and res < stall_ratio * res_prev:
+            A = A_of(K_lin + K_nl)
+            delta = solve_f32(state, A, r.hi, inner_tol(res))
+            dx = tf.df_add_f32(dx, -beta32[:, None] * delta[None, :])
+            r, K2 = residual_and_knl(dx, with_grad=not static_nl_tangent)
+            if K2 is not None:
+                K_nl = K2
+            res_prev, res = res, norm_n(r)
+            it += 1
+        x_new = tf.df_add(xdf, dx)
+        if as_pair:
+            return x_new, dx, res, it
+        return tf.df_to_f64(x_new), tf.df_to_f64(dx), res, it
+
     return step

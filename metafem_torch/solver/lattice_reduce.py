@@ -18,7 +18,9 @@ deterministic (columns are added in list order).  The reference's TPU
 form (0/1 selection matmuls and a ``lax.scan``) places the same values in
 the same order.  Streams that fail the exact host-side verification
 (boundary parts, unstructured meshes, COO spill) go through the gather
-maps of scatter.py.
+maps of scatter.py.  ``scan_apply_group_df`` is the two-float form
+(the refined step's ``df32`` residual): placement is exact, so hi and lo
+are placed apart and only the accumulation is a df_add.
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ from typing import List, Tuple
 
 import numpy as np
 import torch
+
+from ..linsolve import twofloat as tf
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,3 +136,23 @@ def scan_apply_group(target: torch.Tensor,
     for col, fs in pairs:
         apply_fast_stream(target, col, fs)
     return target
+
+
+def scan_apply_group_df(target, pairs):
+    """Two-float ``scan_apply_group``: ``target`` (flat) and the value
+    columns are DF pairs.  Placing a column on its sub-lattice moves
+    values without rounding, so hi and lo are placed independently; only
+    the accumulation into the target, column after column in list order,
+    is a df_add.  Returns the new target pair."""
+    hi, lo = target.hi.clone(), target.lo.clone()
+    for col, fs in pairs:
+        n_cp = int(np.prod(fs.lattice))
+        sub = _sub_lattice(fs)
+        blk_hi = hi[fs.base:fs.base + n_cp].view(fs.lattice)
+        blk_lo = lo[fs.base:fs.base + n_cp].view(fs.lattice)
+        new = tf.df_add(tf.DF(blk_hi[sub], blk_lo[sub]),
+                        tf.DF(col.hi.reshape(fs.el_grid),
+                              col.lo.reshape(fs.el_grid)))
+        blk_hi[sub] = new.hi
+        blk_lo[sub] = new.lo
+    return tf.DF(hi, lo)

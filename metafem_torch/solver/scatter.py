@@ -22,6 +22,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..linsolve import twofloat as tf
 from ..linsolve.block_offset import sorted_segment_plan, sorted_segment_sum
 
 
@@ -102,4 +103,37 @@ def apply_device_maps(maps: Optional[dict], data: torch.Tensor,
     if "of_src" in maps:
         out = out + sorted_segment_sum(data[maps["of_src"]],
                                        maps["of_plan"], num)
+    return out
+
+
+def apply_device_maps_df(maps: Optional[dict], data, num: int):
+    """Two-float ``apply_device_maps``: ``data`` is a DF pair of
+    contribution values, and each slot's cap-term sum is
+    two_sum-compensated (a slot's contributions may cancel, and a plain
+    float32 sum would bring back the float32 assembly floor that the
+    two-float mode removes).  The overflow reduces through one float64
+    sorted segment sum, split back and df_added.  Same fixed order as
+    ``apply_device_maps``: no atomics."""
+    dev = data.hi.device
+    if maps is None:
+        z = torch.zeros(num, dtype=torch.float32, device=dev)
+        return tf.DF(z, z.clone())
+    zero = torch.zeros(1, dtype=torch.float32, device=dev)
+    pad_hi = torch.cat([data.hi, zero])
+    pad_lo = torch.cat([data.lo, zero])
+    gmap_flat = maps["gmap_flat"]
+    n = num
+    cap = gmap_flat.shape[0] // n
+    idx = gmap_flat[0:n]
+    s, c = pad_hi[idx], pad_lo[idx]
+    for k in range(1, cap):
+        idx = gmap_flat[k * n:(k + 1) * n]
+        s, e = tf.two_sum(s, pad_hi[idx])
+        c = c + (e + pad_lo[idx])
+    out = tf.df_normalize(s, c)
+    if "of_src" in maps:
+        v64 = tf.df_to_f64(tf.DF(data.hi[maps["of_src"]],
+                                 data.lo[maps["of_src"]]))
+        t64 = sorted_segment_sum(v64, maps["of_plan"], num)
+        out = tf.df_add(out, tf.df_from_f64(t64))
     return out

@@ -57,8 +57,9 @@ def test_slice_runs_with_jax_and_reference_blocked():
     fails imports the port and chip_smoke.py, runs the slice phase, the
     flagship bench (small) and a BiCGStab(4) solve on a sorted-COO matrix
     on the CPU, with the solver menu, the jitted step, the 3D examples
-    and the multi-field examples imported, and J2's return map run:
-    lazy imports inside functions are caught too."""
+    and the multi-field examples imported, J2's return map run, and one
+    two-float (df32) refined step of the small flagship: lazy imports
+    inside functions are caught too."""
     code = (
         "import sys\n"
         "for m in ('jax', 'jaxlib', 'metafem'):\n"
@@ -98,7 +99,19 @@ def test_slice_runs_with_jax_and_reference_blocked():
         "b = torch.ones(n, dtype=torch.float64)\n"
         "x, it, res = krylov.bicgstabl(A, b, tol=1e-10, maxiter=500, s=4)\n"
         "assert float(res) < 1e-10 and it > 0, (it, float(res))\n"
-        "print('MENU-OK')\n")
+        "print('MENU-OK')\n"
+        "from metafem_torch.linsolve import twofloat\n"
+        "from metafem_torch.solver import df_lowering\n"
+        "dom = bench.build_domain((8, 4), device='cpu')\n"
+        "dom.freeze_linear_tangent()\n"
+        "dom.setup_mg(tune=False)\n"
+        "dom.freeze_refined_residual()\n"
+        "step = dom.make_refined_step(sv_func=krylov.bicgstab,\n"
+        "                             residual_mode='df32', **bench.STEP_KW)\n"
+        "x0 = twofloat.df_from_f64(dom.x.double())\n"
+        "x, _, res, it = step(dom._runtime_state(), x0, 0.0, 1.0)\n"
+        "assert isinstance(x, twofloat.DF) and res < 1e-6, (res, it)\n"
+        "print('DF32-OK')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=300, env=env, cwd=REPO)
@@ -106,6 +119,7 @@ def test_slice_runs_with_jax_and_reference_blocked():
     assert "SLICE-OK" in proc.stdout
     assert "BENCH-OK" in proc.stdout
     assert "MENU-OK" in proc.stdout
+    assert "DF32-OK" in proc.stdout
 
 
 def test_default_device_is_cuda_and_raises_without_it(monkeypatch):

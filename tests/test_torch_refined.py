@@ -264,8 +264,8 @@ def test_float32_domain_step_matches_reference():
 
 def test_unported_options_raise():
     _, dom = _frozen_pair(False)
-    for kw in ({"residual_mode": "df32"}, {"precond": "auxmg"},
-               {"inner_operator": "sparse"}, {"rowshard_mesh": object()}):
+    for kw in ({"precond": "auxmg"}, {"inner_operator": "sparse"},
+               {"rowshard_mesh": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             dom.make_refined_step(**{"precond": "jacobi", **kw})
 
