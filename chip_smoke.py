@@ -24,7 +24,8 @@ from the root of the repository.  Phases, one line or more each:
    the launch floor, the bytes bound and ``torch.index_select``; the 3D
    phase runs both on the tangent's own read stream;
 5. the README thermal Newton step at nel=(400,200) (321,201 DOF, f64)
-   with the FEATool check and a bitwise repeat;
+   with the FEATool check and a bitwise repeat, and ``write_vtk`` of
+   its mesh (its CELLS and POINT_DATA counts checked);
 6. the ``bench.py`` flagship through ``metafem_torch.bench`` at
    nel=(800,400) (1,282,401 DOF, f32 domain, f64 residuals): each
    one-time phase, the converge-once pass, the Chebyshev tune, the
@@ -36,8 +37,19 @@ from the root of the repository.  Phases, one line or more each:
    and launches of the two-float and f32 kernels, a bitwise repeat, its
    x against the f64 step's and its root's f64-mode residual, and the
    two-float SpMV kernel on A_td against its plain version and the f64
-   kernel, timed beside them, CSR ``torch.mv`` and its bound;
-7. the first 3D vector-valued path: ``hyperelastic_3d`` (Neo-Hookean,
+   kernel, timed beside them, CSR ``torch.mv`` and its bound; after
+   the timed step, ``save_freezes`` of the cold domain;
+7. persist (``phase_persist``): a fresh flagship domain warm-started
+   from those freezes (``bench.prepare`` with its freeze cache) runs the
+   timed step, bitwise equal to the cold one; ``free_volume_tables``
+   and the bytes it frees, the step again bitwise equal, the refusal of
+   ``update_one_step``; ``memory_report`` beside
+   ``torch.cuda.memory_allocated``; a ``trace_profile`` of one step
+   holding the SpMV's kernel events; ``freeze_linear_tangent(on_host=
+   True)`` at nel=(400,200) against the device freeze.  The 3D phase
+   adds its bar's memory report and the thermo-elastic path a
+   checkpoint after step 1, resumed bitwise in a fresh domain;
+8. the first 3D vector-valued path: ``hyperelastic_3d`` (Neo-Hookean,
    C=3) at nel=(160,16,16) (541,059 DOF, one dense group of 9 units and
    117 offsets, f64): the SpMV's parity and time on its tangent in f64
    and f32 beside the bounds, the plain version and CSR ``torch.mv``, a
@@ -46,7 +58,7 @@ from the root of the repository.  Phases, one line or more each:
    ``update_one_step`` (its iterations beside the dense kernel's) and
    load step 2 through ``update_one_step_jit`` (residual below 1e-5,
    d1/L within 2% of the analytic curve), peak device memory;
-8. the multi-field and history-variable paths: ``thermal_elasticity_3d``
+9. the multi-field and history-variable paths: ``thermal_elasticity_3d``
    (temperature and displacement, C=4) at nel=(60,24,24) (595,300 DOF,
    one dense group of 117 offsets, f64): the SpMV's parity and time on
    its tangent in f64 and f32, the example's BiCGStab(4) solve twice
@@ -61,11 +73,11 @@ from the root of the repository.  Phases, one line or more each:
    its A_td; ``j2_plasticity``'s mixed-hardening
    sequence within 1.5e-3 of the analytic elongations, its history on
    the card;
-9. the ``kernels`` JSON line, then the device JSON line last.
+10. the ``kernels`` JSON line, then the device JSON line last.
 
-Each path (gather probe, README step, flagship, the df32 flagship, each
-3D load step, each thermo-elastic step, each cavity Reynolds number, the
-df32 cavity) runs
+Each path (gather probe, README step, flagship, the df32 flagship, the
+warm-started flagship, each 3D load step, each thermo-elastic step and
+the resumed ones, each cavity Reynolds number, the df32 cavity) runs
 with the kernels' launch counts set to 0 just before it and read just
 after; every path must have launched its kernel.  Every failure raises
 and exits non-zero.
@@ -80,8 +92,10 @@ from __future__ import annotations
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -486,6 +500,7 @@ def phase_slice(device, nel=NEL) -> dict:
         raise AssertionError(f"FEATool midline error {err}")
     if device.type == "cuda" and launches <= 0:
         raise AssertionError("the step did not launch the SpMV kernel")
+    vtk = _write_vtk_check(dom, mesh)
     # the same step again from the same initial x, with the assembly
     # calls and the linear solves timed (a synchronise around each)
     x1 = dom.x.clone()
@@ -518,7 +533,40 @@ def phase_slice(device, nel=NEL) -> dict:
           f"= {1e3 * parts['solve'] / max(n_it, 1):.3f} ms per BiCGStab "
           f"iteration over {n_it}), x bitwise equal")
     return {"launches": launches, "residual": res, "featool_err": err,
-            "setup_s": t1 - t0, "step_s": t2 - t1, "repeat_s": repeat_s}
+            "setup_s": t1 - t0, "step_s": t2 - t1, "repeat_s": repeat_s,
+            "vtk": vtk}
+
+
+def _write_vtk_check(dom, mesh) -> dict:
+    """The persist phase's step (f): ``write_vtk`` of the stepped mesh
+    into a temporary directory; its CELLS and POINT_DATA counts must be
+    the mesh's elements and occupied control points."""
+    from metafem_torch.io import write_vtk
+    tmp = tempfile.mkdtemp(prefix="metafem_vtk_")
+    try:
+        path = os.path.join(tmp, "thermal.vtk")
+        t = time.perf_counter()
+        write_vtk(path, mesh, dom.workpieces[0].disc.element_type)
+        vtk_s = time.perf_counter() - t
+        counts = {}
+        with open(path) as f:
+            for line in f:
+                word = line.split(" ", 1)[0]
+                if word in ("CELLS", "POINT_DATA", "SCALARS"):
+                    counts.setdefault(word, []).append(line.split()[1])
+        mb = os.path.getsize(path) / 2 ** 20
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    n_pts = int(np.asarray(mesh.is_occupied).sum()
+                if mesh.is_occupied is not None else mesh.n_cp)
+    cells, points = int(counts["CELLS"][0]), int(counts["POINT_DATA"][0])
+    print(f"[persist] write_vtk of the stepped mesh: {vtk_s:.2f} s, "
+          f"{mb:.1f} MB, CELLS {cells}, POINT_DATA {points}, scalars "
+          f"{counts.get('SCALARS', [])}")
+    if (cells, points) != (mesh.n_el, n_pts):
+        raise AssertionError(f"VTK counts {cells}, {points} != mesh "
+                             f"{mesh.n_el}, {n_pts}")
+    return {"s": vtk_s, "cells": cells, "points": points}
 
 
 def _check_gather_rows(rows, refusable) -> None:
@@ -772,6 +820,7 @@ def phase_flagship(device, nel=FLAGSHIP_NEL) -> dict:
     n_dof = dom.pattern.basicfield_size
     for k, v in phases.s.items():
         print(f"[flagship] one-time {k}: {v:.3f} s")
+    cold = _save_flagship_freezes(dom, x0, phases.s, dt, results, x_f64)
     print(f"[flagship] nel={nel} dof={n_dof} {dom.dtype} domain: converge "
           f"once residual {res_c:.3e} in {it_c} refines; tuned interval "
           f"{dom._mg_cheb and list(map(float, dom._mg_cheb[0]))} rate "
@@ -869,7 +918,7 @@ def phase_flagship(device, nel=FLAGSHIP_NEL) -> dict:
             "per_step": per_step, "vcycle_launches": vc_launches,
             "step_ms": dt * 1e3, "final_residual": final,
             "spmv32": spmv32, "spmv64": spmv64, "df32": df32,
-            "df_spmv": df_spmv}
+            "df_spmv": df_spmv, "cold": cold}
 
 
 def _flagship_df32(dom, state, x0, x_f64, label, step64, device) -> dict:
@@ -990,6 +1039,213 @@ def _flagship_df32(dom, state, x0, x_f64, label, step64, device) -> dict:
             "launches": launches, "launches_f32": launches32,
             "rel_to_f64": rel, "f64_residual": res64, "warm_s": warm_s,
             "parts_ms": {k: 1e3 * v for k, v in parts.s.items()}}
+
+
+def _save_flagship_freezes(dom, x0, one_time_s, dt, results, x) -> dict:
+    """The persist phase's step (a.1): ``bench.save_cache`` of the cold
+    flagship domain (its freezes and converged x) into a new temporary
+    directory, after the timed step; returns what the warm start is
+    held to."""
+    from metafem_torch import bench
+    tmp = tempfile.mkdtemp(prefix="metafem_persist_")
+    path = os.path.join(tmp, "flagship_freezes.pkl")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    bench.save_cache(dom, path, x0)
+    save_s = time.perf_counter() - t
+    mb = os.path.getsize(path) / 2 ** 20
+    cold_s = sum(v for k, v in one_time_s.items() if k != "setup")
+    print(f"[persist] save_freezes of the cold flagship after its timed "
+          f"step: {mb:.1f} MB pickle (+ {os.path.getsize(path + '.x') / 2 ** 20:.1f}"
+          f" MB converged x) in {save_s:.2f} s; the freezes it replaces "
+          f"took {cold_s:.2f} s cold ({', '.join(f'{k} {v:.2f}' for k, v in one_time_s.items() if k != 'setup')})")
+    return {"dir": tmp, "path": path, "save_s": save_s, "mb": mb,
+            "cold_s": cold_s, "x0": x0, "x": x, "step_ms": dt * 1e3,
+            "residual": results[-1][1],
+            "refines": [r[2] for r in results]}
+
+
+def _memory_line(dom, device, tag: str) -> dict:
+    """``memory_report``'s TOTAL beside ``torch.cuda.memory_allocated``:
+    the gap is what the report does not see (frozen operators, pack
+    plans, multigrid levels, gather maps) and whatever else the process
+    holds on the card."""
+    from metafem_torch.utils import memory_report
+    rep = memory_report(dom, unit="MB")
+    alloc = (torch.cuda.memory_allocated(device) / 2 ** 20
+             if device.type == "cuda" else 0.0)
+    total = rep["TOTAL (MB)"]
+    print(f"[{tag}] memory_report TOTAL {total:.1f} MB ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in rep.items()
+                      if not k.startswith("TOTAL"))
+          + f") beside torch.cuda.memory_allocated {alloc:.1f} MB: "
+          f"{alloc - total:.1f} MB the report does not see")
+    return {"report_mb": total, "allocated_mb": alloc}
+
+
+def phase_persist(device, cold: dict, nel=FLAGSHIP_NEL,
+                  host_nel=NEL) -> dict:
+    """Freeze persistence and profiling on the flagship (the thermo-
+    elastic checkpoint resume runs in ``_te_path``, the VTK file in
+    ``phase_slice``, the 3D bar's memory report in ``phase_3d``):
+
+    a. a fresh flagship domain (``bench.build_domain``) loads the cold
+       domain's freezes and converged x through ``bench.prepare`` with
+       its freeze cache, and runs the timed step from the same starts:
+       x and the final residual bitwise equal to the cold domain's,
+       the SpMV kernel launched;
+    b. ``free_volume_tables`` on it: the bytes freed, the step again
+       bitwise equal, ``update_one_step`` refused;
+    c. ``memory_report`` before and after, beside the allocator;
+    g. ``trace_profile`` around one step: its Chrome trace holds the
+       SpMV kernel's events;
+    d. ``freeze_linear_tangent(on_host=True)`` on the flagship physics
+       at ``host_nel`` against the device freeze."""
+    from metafem_torch import bench
+    from metafem_torch.linsolve import offset_spmv
+    from metafem_torch.utils import trace_profile
+    t_all = time.perf_counter()
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        dom = bench.build_domain(nel, device=device)
+        torch.cuda.synchronize(device)
+        phases = bench.Phases(dom)
+        phases.s["setup"] = time.perf_counter() - t0
+        offset_spmv.reset_launches()
+        x0, converged, step, label = bench.prepare(dom, phases,
+                                                   cold["path"])
+        if converged is not None or "load_freezes" not in phases.s:
+            raise AssertionError(f"the warm start computed its freezes: "
+                                 f"{phases.s}")
+        if not torch.equal(x0, cold["x0"]):
+            raise AssertionError("the loaded converged x differs")
+        dt, results, x = bench.measure(dom, step, x0)
+        launches = offset_spmv.group_mv.launches
+        res = results[-1][1]
+        print(f"[persist] warm start nel={nel}: setup "
+              f"{phases.s['setup']:.2f} s, load_freezes "
+              f"{phases.s['load_freezes']:.2f} s against the cold freezes' "
+              f"{cold['cold_s']:.2f} s; inner solver {label}; step median "
+              f"{dt * 1e3:.2f} ms (cold {cold['step_ms']:.2f} ms), refines "
+              f"{[r[2] for r in results]} (cold {cold['refines']}), final "
+              f"residual {res:.6e} (cold {cold['residual']:.6e}); "
+              f"offset_spmv launches {launches}")
+        if launches <= 0:
+            raise AssertionError("the warm-started step launched no SpMV "
+                                 "kernel")
+        if not (torch.equal(x, cold["x"]) and res == cold["residual"]):
+            raise AssertionError("the warm-started step differs from the "
+                                 "cold one")
+        print("[persist] warm-started step: x and final residual bitwise "
+              "equal to the cold domain's")
+
+        mem_full = _memory_line(dom, device, "persist")
+        gc.collect()
+        torch.cuda.synchronize(device)
+        before = torch.cuda.memory_allocated(device)
+        dom.free_volume_tables()
+        gc.collect()
+        after = torch.cuda.memory_allocated(device)
+        state = dom._runtime_state()
+        x1 = bench.perturbed(x0, 2)        # the last timed trial's start
+        offset_spmv.reset_launches()
+        xb, _, res_b, _ = step(state, x1, 0.0, 1.0)
+        torch.cuda.synchronize(device)
+        launches_b = offset_spmv.group_mv.launches
+        print(f"[persist] free_volume_tables: "
+              f"torch.cuda.memory_allocated {before / 2 ** 20:.1f} -> "
+              f"{after / 2 ** 20:.1f} MB, {(before - after) / 2 ** 20:.1f} "
+              f"MB freed; the step again: residual {res_b:.6e}, "
+              f"offset_spmv launches {launches_b}")
+        if not (torch.equal(xb, x) and res_b == res and launches_b > 0):
+            raise AssertionError("the step after free_volume_tables "
+                                 "differs")
+        try:
+            dom.update_one_step()
+        except RuntimeError as e:
+            if "free_volume_tables" not in str(e):
+                raise
+        else:
+            raise AssertionError("update_one_step ran on freed tables")
+        print("[persist] the step after free_volume_tables bitwise equal; "
+              "update_one_step refused")
+        mem_freed = _memory_line(dom, device, "persist")
+
+        logdir = os.path.join(cold["dir"], "trace")
+        with trace_profile(logdir) as prof:
+            step(state, x1, 0.0, 1.0)
+        with open(prof.trace_path) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = [ev for ev in events if ev.get("cat") == "kernel"]
+        spmv = [ev for ev in kernels if "offset_spmv" in ev.get("name", "")]
+        spmv_ms = sum(ev.get("dur", 0) for ev in spmv) / 1e3
+        busy_ms = sum(ev.get("dur", 0) for ev in kernels) / 1e3
+        print(f"[persist] trace_profile of one step: "
+              f"{os.path.getsize(prof.trace_path) / 2 ** 20:.1f} MB Chrome "
+              f"trace, {len(events)} events, {len(kernels)} kernel events "
+              f"({busy_ms:.2f} ms), {len(spmv)} offset_spmv kernel events "
+              f"({spmv_ms:.3f} ms)")
+        if device.type == "cuda" and not spmv:
+            cats = sorted({str(ev.get("cat")) for ev in events})
+            raise AssertionError(f"the trace holds no offset_spmv kernel "
+                                 f"event (categories {cats})")
+        del dom, state, step, prof, events
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        host = {str(dt).split(".")[1]: _host_freeze(bench, host_nel, dt,
+                                                     device)
+                for dt in (torch.float64, torch.float32)}
+    finally:
+        shutil.rmtree(cold["dir"], ignore_errors=True)
+    print(f"[persist] phase {time.perf_counter() - t_all:.1f} s")
+    return {"load_s": phases.s["load_freezes"], "save_s": cold["save_s"],
+            "mb": cold["mb"], "cold_s": cold["cold_s"],
+            "warm_setup_s": phases.s["setup"], "step_ms": dt * 1e3,
+            "freed_bytes": before - after, "memory_full": mem_full,
+            "memory_freed": mem_freed, "trace_spmv_events": len(spmv),
+            "host_freeze": host}
+
+
+#: the float32 device freeze's own error on the flagship physics: its
+#: geometry is float32 at an element size ~1/400 of the strip's length,
+#: so each entry carries ~2^-24 x 400 x (a few) of rounding (9.0e-5 on
+#: the CPU at nel=(400,200)); the float64 freezes differ by summation
+#: order only
+HOST_FREEZE_TOL = {torch.float64: 1e-12, torch.float32: 1e-3}
+
+
+def _host_freeze(bench, nel, dtype, device) -> dict:
+    """The persist phase's step (d): ``freeze_linear_tangent`` on the
+    card, then ``on_host=True`` (float64 on the CPU, moved to the card
+    in the domain's dtype), on the flagship physics at ``nel``."""
+    dom = bench.build_domain(nel, device=device, dtype=dtype)
+    torch.cuda.synchronize(device)
+    t = time.perf_counter()
+    dom.freeze_linear_tangent()
+    torch.cuda.synchronize(device)
+    dev_s = time.perf_counter() - t
+    K_dev = dom._k_linear_td.double()
+    t = time.perf_counter()
+    dom.freeze_linear_tangent(on_host=True)
+    torch.cuda.synchronize(device)
+    host_s = time.perf_counter() - t
+    K_host = dom._k_linear_td.double()
+    rel = float((K_host - K_dev).abs().max() / K_dev.abs().max())
+    print(f"[persist] freeze_linear_tangent nel={nel} "
+          f"({dom.pattern.basicfield_size} DOF, {dtype} domain): on the "
+          f"host (float64 on the CPU, {torch.get_num_threads()} threads) "
+          f"{host_s:.2f} s against {dev_s:.3f} s on the card; components "
+          f"within {rel:.3e} of the largest entry")
+    if not rel <= HOST_FREEZE_TOL[dtype]:
+        raise AssertionError(f"host and device freezes differ: {rel}")
+    del dom, K_dev, K_host
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"host_s": host_s, "device_s": dev_s, "rel": rel}
 
 
 def _solve_twice(dom, A, residue, device) -> tuple:
@@ -1186,6 +1442,7 @@ def phase_3d(device, e_number=E3D) -> dict:
         raise AssertionError("load step 2 launched no SpMV kernel")
     peak = (torch.cuda.max_memory_allocated(device)
             if device.type == "cuda" else 0)
+    memory = _memory_line(dom, device, "persist")
     phase_s = time.perf_counter() - t_all
     print(f"[3d] peak device memory {peak / 2 ** 30:.2f} GiB "
           f"(torch.cuda.max_memory_allocated); phase {phase_s:.1f} s")
@@ -1194,7 +1451,7 @@ def phase_3d(device, e_number=E3D) -> dict:
             "launches2": launches2, "step1_s": step1_s,
             "step2_s": step2_s, "iters1": its1, "peak_bytes": peak,
             "spmv64": spmv64, "spmv32": spmv32, "profile": profile,
-            "gather": gather}
+            "gather": gather, "memory": memory}
 
 
 def _gather_stream(A, mesh, device) -> list:
@@ -1225,6 +1482,7 @@ def _te_path(device, e_number) -> dict:
     (``update_one_step(max_iter=3)``), each below 1e-6, with the SpMV's
     launch count set to 0 before them and read after."""
     from metafem_torch.examples import thermal_elasticity_3d as te
+    from metafem_torch.io import save_checkpoint
     from metafem_torch.linsolve import offset_spmv
     from metafem_torch.linsolve.block_offset import OffsetMatrix
     from metafem_torch.linsolve.precond import pr_jacobi
@@ -1283,6 +1541,8 @@ def _te_path(device, e_number) -> dict:
     del As, residue
 
     steps = []
+    ckpt_dir = tempfile.mkdtemp(prefix="metafem_checkpoint_")
+    ckpt = os.path.join(ckpt_dir, "te_step1.npz")
     for k in range(3):
         n_log = len(dom.solve_log)
         offset_spmv.reset_launches()
@@ -1290,6 +1550,10 @@ def _te_path(device, e_number) -> dict:
         (res,) = te.run_steps(dom, wp, 1)
         sync()
         wall = time.perf_counter() - t
+        if k == 0:
+            t = time.perf_counter()
+            save_checkpoint(dom, ckpt)
+            ckpt_s = time.perf_counter() - t
         launches = offset_spmv.group_mv.launches
         its = [it for it, _ in dom.solve_log[n_log:]]
         steps.append({"residual": res, "s": wall, "launches": launches,
@@ -1313,11 +1577,58 @@ def _te_path(device, e_number) -> dict:
           f", {mesh.fields['T'].max():.3f}], max|d2| "
           f"{np.abs(mesh.fields['d2']).max():.3e} after 3 steps; peak device "
           f"memory {peak / 2 ** 30:.2f} GiB (torch.cuda.max_memory_allocated)")
+    x3 = dom.x.clone()
+    del dom, mesh
+    try:
+        resume = _te_resume(device, e_number, ckpt, ckpt_s, x3)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
     return {"G": G, "n_off": n_off, "C": C, "n_cp": n_cp, "dof": dof,
             "e_number": e_number, "setup_s": setup_s, "steps": steps,
-            "profile": profile,
+            "profile": profile, "resume": resume,
             "launches": sum(s["launches"] for s in steps),
             "peak_bytes": peak, "spmv64": spmv64, "spmv32": spmv32}
+
+
+def _te_resume(device, e_number, ckpt, save_s, x3) -> dict:
+    """The persist phase's step (e): a freshly built thermo-elastic
+    domain loads the checkpoint written after step 1 and runs steps 2-3;
+    its x must equal the uninterrupted run's ``x3`` bit for bit."""
+    from metafem_torch.examples import thermal_elasticity_3d as te
+    from metafem_torch.io import load_checkpoint
+    from metafem_torch.linsolve import offset_spmv
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    t = time.perf_counter()
+    dom, wp = te.build(e_number=e_number, device=device)
+    build_s = time.perf_counter() - t
+    t = time.perf_counter()
+    meta = load_checkpoint(dom, ckpt)
+    load_s = time.perf_counter() - t
+    offset_spmv.reset_launches()
+    t = time.perf_counter()
+    res = te.run_steps(dom, wp, 2)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    steps_s = time.perf_counter() - t
+    launches = offset_spmv.group_mv.launches
+    print(f"[persist] thermo-elastic checkpoint after step 1 "
+          f"({os.path.getsize(ckpt) / 2 ** 20:.1f} MB .npz, saved in "
+          f"{save_s:.2f} s): a fresh domain (built in {build_s:.2f} s) "
+          f"loaded it in {load_s:.2f} s at t={meta['t']:g} and ran steps "
+          f"2-3 in {steps_s:.2f} s, residuals "
+          f"{[float(f'{r:.3e}') for r in res]}, offset_spmv launches "
+          f"{launches}")
+    if device.type == "cuda" and launches <= 0:
+        raise AssertionError("the resumed steps launched no SpMV kernel")
+    if not torch.equal(dom.x, x3):
+        raise AssertionError("the resumed thermo-elastic run differs from "
+                             "the uninterrupted one")
+    print("[persist] resumed steps 2-3: x bitwise equal to the "
+          "uninterrupted run's")
+    return {"save_s": save_s, "load_s": load_s, "steps_s": steps_s,
+            "launches": launches, "residuals": res}
 
 
 def _te_steady(device, e_number) -> dict:
@@ -1568,6 +1879,7 @@ def main() -> None:
     gat = run("gather", phase_gather)
     sl = run("slice", phase_slice)
     flag = run("flagship", phase_flagship)
+    run("persist", lambda dev: phase_persist(dev, flag.pop("cold")))
     p3d = run("3d", phase_3d)
     mfp = run("multifield", phase_multifield)
     print("[time] " + ", ".join(f"{k} {v:.2f} s" for k, v in times.items())

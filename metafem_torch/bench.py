@@ -3,6 +3,7 @@
 
     python3 -m metafem_torch.bench                 # nel=(800,400), CUDA
     python3 -m metafem_torch.bench --nel 40 20 --device cpu
+    python3 -m metafem_torch.bench --freeze-cache /tmp/fz.pkl   # twice
 
 The counterpart of the repository's ``bench.py`` (the JAX package's,
 which stays as it is), with the same configuration and metric name:
@@ -23,15 +24,25 @@ DOF, float32 domain.  The production path:
 Prints one JSON line: the metric ``newton_step_dofs_per_sec_1mdof_tol1e-6``
 with ``step_ms``, ``final_residual``, ``step_refines``,
 ``inner_solver``, ``cheb_interval``, ``cheb_rate``, ``one_time_s`` per
-phase and ``timing: "single_dispatch"``.  No freeze cache and no chained
-measurement: both exist in ``bench.py`` for the TPU's compile and
-dispatch costs.
+phase and ``timing: "single_dispatch"``.  No chained measurement: it
+exists in ``bench.py`` for the TPU's dispatch costs.
+
+``--freeze-cache PATH`` is the production warm start (``bench.py``'s
+``.freeze_cache/bench2d.pkl``): when PATH exists and was saved under the
+same storage layout, ``load_freezes`` and the converged x saved beside
+it (``PATH.x``) replace steps 1-3; otherwise they run and
+``save_freezes`` writes both.  ``one_time_s`` then names
+``load_freezes`` or ``save_freezes``.  A stale layout prints one line
+and recomputes; any other failure to save or load raises.  Off by
+default, so the cold one-time phases stay comparable between runs.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import pickle
 import sys
 import time
 from typing import Optional
@@ -42,7 +53,7 @@ import torch
 import metafem_torch as mf
 from metafem_torch import Bilinear
 from metafem_torch.linsolve import krylov
-from metafem_torch.solver.domain import FEM_Domain
+from metafem_torch.solver.domain import FEM_Domain, StaleFreezeCache
 
 METRIC = "newton_step_dofs_per_sec_1mdof_tol1e-6"
 #: the flagship mesh: 1,282,401 DOF (bench.py:134)
@@ -120,10 +131,45 @@ class Phases:
         return out
 
 
-def prepare(dom: FEM_Domain, phases: Phases):
+def production_step(dom: FEM_Domain):
+    """The step to time and its inner solver's name: Chebyshev when the
+    tune certified an enclosure, BiCGStab otherwise."""
+    sv = krylov.chebyshev if dom._mg_cheb is not None else krylov.bicgstab
+    return dom.make_refined_step(sv_func=sv, **STEP_KW), sv.__name__
+
+
+def save_cache(dom: FEM_Domain, path: str, x0: torch.Tensor) -> None:
+    """``save_freezes`` to ``path`` and the converged float64 x to
+    ``path + ".x"``."""
+    dom.save_freezes(path)
+    with open(path + ".x", "wb") as f:
+        pickle.dump(x0.double().cpu().numpy(), f, protocol=4)
+
+
+def load_cache(dom: FEM_Domain, path: str) -> torch.Tensor:
+    """``load_freezes`` from ``path`` and the converged float64 x saved
+    beside it into ``dom.x``; returns that x."""
+    dom.load_freezes(path)
+    with open(path + ".x", "rb") as f:
+        dom.x = torch.as_tensor(pickle.load(f), dtype=torch.float64,
+                                device=dom.device)
+    return dom.x
+
+
+def prepare(dom: FEM_Domain, phases: Phases,
+            freeze_cache: Optional[str] = None):
     """The freezes, the converge-once pass and the tune at the converged
-    state.  Returns (x0 in float64, (converge-once residual, refines),
-    the step to time, its inner solver's name)."""
+    state, or, from a ``freeze_cache`` saved under the same layout, the
+    loaded freezes and converged x.  Returns (x0 in float64,
+    (converge-once residual, refines) or None when loaded, the step to
+    time, its inner solver's name)."""
+    if freeze_cache is not None and os.path.exists(freeze_cache):
+        try:
+            x0 = phases.run("load_freezes", load_cache, dom, freeze_cache)
+        except StaleFreezeCache as e:
+            print(f"[bench] {e}", file=phases.log or sys.stderr, flush=True)
+        else:
+            return (x0, None) + production_step(dom)
     phases.run("freeze_linear_tangent", dom.freeze_linear_tangent)
     phases.run("setup_mg", dom.setup_mg, tune=False)
     phases.run("freeze_refined_residual", dom.freeze_refined_residual)
@@ -133,9 +179,9 @@ def prepare(dom: FEM_Domain, phases: Phases):
         dom.x.to(torch.float64), 0.0, 1.0)
     dom.x = x_c
     phases.run("tune_mg", dom.setup_mg)
-    sv = krylov.chebyshev if dom._mg_cheb is not None else krylov.bicgstab
-    step = dom.make_refined_step(sv_func=sv, **STEP_KW)
-    return x_c, (res_c, it_c), step, sv.__name__
+    if freeze_cache is not None:
+        phases.run("save_freezes", save_cache, dom, freeze_cache, x_c)
+    return (x_c, (res_c, it_c)) + production_step(dom)
 
 
 def perturbed(x0: torch.Tensor, trial: int) -> torch.Tensor:
@@ -162,17 +208,20 @@ def measure(dom: FEM_Domain, step, x0: torch.Tensor, n_trials: int = 3):
     return med, [r[:3] for r in results], results[-1][3]
 
 
-def run(nel=NEL, device=None, log=sys.stderr) -> dict:
-    """Build, freeze, converge once, tune and time the flagship step;
-    returns the JSON record, plus the last trial's x under ``_x``."""
+def run(nel=NEL, device=None, log=sys.stderr,
+        freeze_cache: Optional[str] = None) -> dict:
+    """Build, freeze, converge once, tune (or load all that from
+    ``freeze_cache``) and time the flagship step; returns the JSON
+    record, plus the last trial's x under ``_x``."""
     t_all = time.perf_counter()
     t0 = time.perf_counter()
     dom = build_domain(nel, device=device)
     _sync(dom)
     phases = Phases(dom, log)
     phases.s["setup"] = time.perf_counter() - t0
-    x0, (res_c, it_c), step, label = prepare(dom, phases)
-    if log is not None:
+    x0, converged, step, label = prepare(dom, phases, freeze_cache)
+    res_c, it_c = converged or (None, None)
+    if log is not None and converged is not None:
         print(f"[bench] converge once: residual {res_c:.3e} in {it_c} "
               f"refines; inner solver {label}", file=log, flush=True)
     dt, results, x = measure(dom, step, x0)
@@ -206,8 +255,13 @@ def main(argv: Optional[list] = None) -> dict:
     ap.add_argument("--nel", type=int, nargs=2, default=list(NEL))
     ap.add_argument("--device", default=None,
                     help="torch device (default: CUDA, which must exist)")
+    ap.add_argument("--freeze-cache", default=None, metavar="PATH",
+                    help="load the freezes and converged x from PATH (and "
+                    "PATH.x) when saved under the same layout, else "
+                    "compute and save them there")
     args = ap.parse_args(argv)
-    record = run(tuple(args.nel), device=args.device)
+    record = run(tuple(args.nel), device=args.device,
+                 freeze_cache=args.freeze_cache)
     print(json.dumps({k: v for k, v in record.items()
                       if not k.startswith("_")}), flush=True)
     return record

@@ -50,13 +50,21 @@ opt-in on a float32 domain:
     x_df, dx, res, refines = step(dom._runtime_state(),
                                   twofloat.df_from_f64(x), t, dt)
 
-Not ported yet: the auxiliary-space multigrid, freeze persistence and
-checkpoints.
+Repeated runs of one problem reload the freezes instead of computing
+them (the validity contract is the caller's: the same mesh, weak forms,
+fields and global constants):
+
+    dom.save_freezes("fz.pkl")             # after the freezes and tune
+    dom2.load_freezes("fz.pkl")            # a fresh identical domain
+    dom2.free_volume_tables()              # affine volume: tables unused
+
+Not ported yet: the auxiliary-space multigrid.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import pickle
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -92,6 +100,55 @@ from .time_domain import (GeneralAlpha, initialize_dx, normalized_norm,
                           update_dx, x_star_of)
 
 _COORD_NAMES = ("x", "y", "z")
+_CPU = torch.device("cpu")
+#: save_freezes' stand-ins for what load_freezes rebuilds from the live
+#: domain: the state's volume tables (aliased by the refined record),
+#: the float64 field columns, and an OffsetMatrix's layout
+_STATE_EL = "__state_el__"
+_MESH_FIELDS64 = "__mesh_fields64__"
+_OFFSET_MATRIX = "__offset_matrix__"
+
+
+class StaleFreezeCache(ValueError):
+    """load_freezes: the file was saved under another storage layout."""
+
+
+def _is_tag(value, tag: str) -> bool:
+    return isinstance(value, str) and value == tag
+
+
+def _to_host(tree):
+    """``tree`` with every tensor as a numpy array (its dtype kept) and
+    every OffsetMatrix as {_OFFSET_MATRIX: values}: no device tensor and
+    no pack plan is pickled."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    if isinstance(tree, OffsetMatrix):
+        return {_OFFSET_MATRIX: _to_host(tree.vals)}
+    if isinstance(tree, dict):
+        return {k: _to_host(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_to_host(v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_host(v) for v in tree)
+    return tree
+
+
+def _to_device(tree, device, layout):
+    """The inverse of _to_host: numpy arrays become tensors on
+    ``device`` in the dtype they were saved in."""
+    if isinstance(tree, np.ndarray):
+        return torch.as_tensor(tree).to(device)
+    if isinstance(tree, dict):
+        if set(tree) == {_OFFSET_MATRIX}:
+            return OffsetMatrix.from_values(
+                _to_device(tree[_OFFSET_MATRIX], device, layout), layout)
+        return {k: _to_device(v, device, layout) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_to_device(v, device, layout) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_device(v, device, layout) for v in tree)
+    return tree
 
 
 @dataclasses.dataclass
@@ -154,10 +211,17 @@ class FEM_Domain:
         self._mg_spectrum: Optional[Tuple[float, float]] = None
         self._mg_cheb = None
         self._jit_step = None
+        # the host float64 caches shared by the one-time freezes, the
+        # CPU copies of the reduction maps they run with, and whether
+        # free_volume_tables released the volume tables
+        self._host_wp64_cache: Optional[list] = None
+        self._host_lin_td64_cache: Optional[List[np.ndarray]] = None
+        self._host_maps: Dict[str, dict] = {}
+        self._volume_tables_freed = False
 
-    def _tensor(self, arr, dtype=None) -> torch.Tensor:
+    def _tensor(self, arr, dtype=None, device=None) -> torch.Tensor:
         return torch.as_tensor(np.asarray(arr), dtype=dtype or self.dtype,
-                               device=self.device)
+                               device=device or self.device)
 
     @property
     def user_state(self) -> dict:
@@ -341,12 +405,25 @@ class FEM_Domain:
             if ph not in self._device_maps:
                 self._device_maps[ph] = self._build_phase_maps(ph)
 
-    def _build_phase_maps(self, phase_key: str) -> dict:
+    def _phase_maps(self, device, *phases) -> dict:
+        """The reduction maps of ``phases`` on ``device``: the domain's
+        own on its device, CPU copies kept in ``_host_maps`` for the host
+        freezes of a CUDA domain."""
+        if torch.device(device) == self.device:
+            self._ensure_device_maps(*phases)
+            return self._device_maps
+        for ph in phases:
+            if ph not in self._host_maps:
+                self._host_maps[ph] = self._build_phase_maps(ph, device)
+        return self._host_maps
+
+    def _build_phase_maps(self, phase_key: str, device=None) -> dict:
         """Reduction maps of one assembly phase: lattice strided adds
         (into self._fast_maps) where a stream's slot columns are affine in
-        the lattice index, device gather maps (returned) for the rest,
-        and under "rest_cols" the remaining columns of each split stream
-        as device indices."""
+        the lattice index, gather maps on ``device`` (the domain's by
+        default; returned) for the rest, and under "rest_cols" the
+        remaining columns of each split stream as indices there."""
+        device = device or self.device
         seg_bases = np.asarray(
             [s[4] for s in self.pattern.offset_layout.segments])
         seg_ncp = np.asarray(
@@ -394,7 +471,7 @@ class FEM_Domain:
                 if rest_cols.size:
                     rest[kind].append(slots2[:, rest_cols].reshape(-1))
                     rest_cols_dev[kind, si] = torch.as_tensor(
-                        rest_cols.astype(np.int64), device=self.device)
+                        rest_cols.astype(np.int64), device=device)
             else:
                 rest[kind].append(s["slots"].reshape(-1))
         self._fast_maps[phase_key] = fast
@@ -406,10 +483,10 @@ class FEM_Domain:
                 continue
             gr, touched = build_compact_gather_reduce(
                 np.concatenate(rest[kind]), num)
-            entry[kind] = maps_to_device(gr, self.device)
+            entry[kind] = maps_to_device(gr, device)
             if touched is not None:
                 entry[kind + "_touched"] = torch.as_tensor(
-                    touched.astype(np.int64), device=self.device)
+                    touched.astype(np.int64), device=device)
         return entry
 
     def _ghost_diag_vector(self) -> Optional[torch.Tensor]:
@@ -460,15 +537,17 @@ class FEM_Domain:
     # ------------------------------------------------------------------
     # runtime state
     # ------------------------------------------------------------------
-    def _geometry_state(self, dtype=None, volume: bool = True) -> list:
-        """Geometry tables per workpiece on the domain's device, computed
-        from the host coordinates in ``dtype`` (the domain's by default).
-        ``volume=False`` skips the element tables (boundary-only views
-        for the refined step's nonaffine remainder)."""
+    def _geometry_state(self, dtype=None, volume: bool = True,
+                        device=None) -> list:
+        """Geometry tables per workpiece on ``device`` (the domain's by
+        default), computed from the host coordinates in ``dtype`` (the
+        domain's by default).  ``volume=False`` skips the element tables
+        (boundary-only views for the refined step's nonaffine
+        remainder)."""
         wp_states = []
         for wp in self.workpieces:
-            coords = self._tensor(wp.mesh.cp_coords, dtype)
-            el_cp = self._tensor(wp.mesh.el_cp, torch.int64)
+            coords = self._tensor(wp.mesh.cp_coords, dtype, device)
+            el_cp = self._tensor(wp.mesh.el_cp, torch.int64, device)
             el_state = None
             if volume:
                 itg_vals, itg_w = update_element_geometry(coords, el_cp,
@@ -479,7 +558,7 @@ class FEM_Domain:
             for bg_id, parts in wp.bdy_parts.items():
                 plist = []
                 for (ei, els) in parts:
-                    el_cp_f = el_cp[self._tensor(els, torch.int64)]
+                    el_cp_f = el_cp[self._tensor(els, torch.int64, device)]
                     f_vals, f_w, f_n = update_facet_geometry(
                         coords, el_cp_f, wp.disc, ei)
                     plist.append({"itg_vals": f_vals, "weights": f_w,
@@ -491,24 +570,118 @@ class FEM_Domain:
 
     def update_mesh(self) -> None:
         """(Re)compute geometry tables into the runtime state (update_Mesh
-        analog)."""
+        analog); volume tables released by free_volume_tables come back."""
+        self.drop_host_caches()
         self.state = {"wp": self._geometry_state()}
+        self._volume_tables_freed = False
         self.refresh_fields()
 
     def refresh_fields(self) -> None:
         """Re-upload the named controlpoint columns (call after mutating
         mesh fields)."""
+        self.drop_host_caches()
         for wps, fields in zip(self.state["wp"], self._fields()):
             wps["fields"] = fields
 
     def set_field(self, wp_id: int, name: str, values) -> None:
+        self.drop_host_caches()
         self.workpieces[wp_id].mesh.set_field(name, values)
 
-    def _fields(self, dtype=None) -> list:
-        """Named controlpoint columns per workpiece, in ``dtype``."""
-        return [{name: self._tensor(col, dtype)
+    def _fields(self, dtype=None, device=None) -> list:
+        """Named controlpoint columns per workpiece, in ``dtype`` on
+        ``device`` (the domain's by default)."""
+        return [{name: self._tensor(col, dtype, device)
                  for name, col in wp.mesh.fields.items()}
                 for wp in self.workpieces]
+
+    # ------------------------------------------------------------------
+    # shared host-f64 freeze caches
+    # ------------------------------------------------------------------
+    def drop_host_caches(self) -> None:
+        """Invalidate the cached host float64 geometry and field tables
+        and linear-tangent components shared by the one-time freezes
+        (freeze_linear_tangent(on_host=True), freeze_refined_residual,
+        _host_tangent).  Called whenever mesh fields change; call it to
+        reclaim host memory after the freezes are done."""
+        self._host_wp64_cache = None
+        self._host_lin_td64_cache = None
+
+    def _host_wp64(self) -> list:
+        """float64 geometry and field tables on the CPU, cached: every
+        host freeze reads the same tables.  Invalidated by
+        refresh_fields, set_field, dessemble_x and update_mesh."""
+        if self._host_wp64_cache is None:
+            self._host_wp64_cache = self._f64_tables(device=_CPU)
+        return self._host_wp64_cache
+
+    def _host_lin_td64(self) -> List[np.ndarray]:
+        """Per-time-level float64 linear tangent components (one 'lin'
+        assembly each, one-hot K_params) on the CPU, cached as numpy
+        arrays.  Each still holds the ghost regularizer when there is
+        one (the 'lin' phase adds it once per run); consumers subtract
+        it by their own combine convention.  Shared by
+        freeze_linear_tangent(on_host=True), _host_tangent and, when
+        every linear gradient is affine, freeze_refined_residual."""
+        if self._host_lin_td64_cache is None:
+            st = self._host_phase_state("lin")
+            comps = []
+            for td in range(self.pattern.max_time_level + 1):
+                st["K_params"] = self._one_hot_k_params(td, torch.float64,
+                                                        _CPU)
+                comps.append(self._run_phase(st, "lin")[1].numpy())
+            self._host_lin_td64_cache = comps
+        return self._host_lin_td64_cache
+
+    def _all_forms_affine(self) -> bool:
+        """True when every linear gradient comes from an affine form:
+        then the 'lin' phase and the refined step's 'aff_lin' phase
+        assemble the same operator and the host components are shared.
+        Nonaffine forms may exist (a T^4 radiation boundary) as long as
+        all their gradients are nonlinear."""
+        for wp in self.workpieces:
+            la = wp.local_assembly
+            wfs = ([la.assembled_weakform]
+                   + list(la.assembled_boundary_weakform_pairs.values()))
+            for wf in wfs:
+                aff = wf.affine_form_ids()
+                if any(g.form_id not in aff for g in wf.linear_gradients):
+                    return False
+        return True
+
+    def _host_phase_state(self, *phases: str) -> dict:
+        """The runtime state rebuilt in float64 on the CPU from host
+        sources (tables from the _host_wp64 cache), with the CPU
+        reduction maps of ``phases``, for one-time assemblies of the
+        freezes."""
+        f64 = torch.float64
+        ghost = self._ghost_diag
+        return {
+            "wp": self._host_wp64(),
+            "maps": self._phase_maps(_CPU, *phases),
+            "ghost_diag": None if ghost is None else ghost.to(_CPU, f64),
+            "x_star": self.x.to(_CPU, f64),
+            "t": float(self.t), "dt": float(self.dt or 1.0),
+            "K_params": self._tensor(self.time_discretization.K_params,
+                                     f64, _CPU),
+            "global_vars": {k: float(v)
+                            for k, v in self.global_vars.items()},
+            "user": {k: v.to(_CPU) if isinstance(v, torch.Tensor) else v
+                     for k, v in self.user_state.items()}}
+
+    def _host_tangent(self) -> np.ndarray:
+        """The tangent at the current x assembled on the CPU in float64
+        (the frozen linear components plus the nonlinear blocks), as
+        numpy storage values: the auxiliary-space multigrid's setup
+        input, which never needs the volume gather maps on the card."""
+        comps = self._host_lin_td64()
+        Kp = np.asarray(self.time_discretization.K_params, np.float64)
+        ghost = self._ghost_diag
+        g64 = (ghost.to(_CPU, torch.float64).numpy() if ghost is not None
+               else 0.0)
+        K_lin = sum(Kp[td] * (c - g64) for td, c in enumerate(comps))
+        K_lin = K_lin + g64
+        st = self._host_phase_state("nl")
+        return K_lin + self._run_phase(st, "nl")[1].numpy()
 
     def _runtime_state(self) -> dict:
         ga = self.time_discretization
@@ -532,6 +705,7 @@ class FEM_Domain:
     def assemble_tangent(self) -> Tuple[OffsetMatrix, torch.Tensor]:
         """(tangent as an OffsetMatrix, residue) at the current x, with
         the time parameters of a step of ``self.dt``."""
+        self._require_volume_tables("assemble_tangent")
         self.time_discretization.update_time(self.dt,
                                              self.pattern.max_time_level)
         state = self._runtime_state()
@@ -541,23 +715,39 @@ class FEM_Domain:
                 residue)
 
     # ------------------------------------------------------------------
-    # freezes of the refined step (all on the domain's device)
+    # freezes of the refined step
     # ------------------------------------------------------------------
-    def _one_hot_k_params(self, td: int, dtype) -> torch.Tensor:
+    def _one_hot_k_params(self, td: int, dtype, device=None) -> torch.Tensor:
         one_hot = np.zeros(self.pattern.max_time_level + 1)
         one_hot[td] = 1.0
-        return self._tensor(one_hot, dtype)
+        return self._tensor(one_hot, dtype, device)
 
-    def freeze_linear_tangent(self) -> None:
+    def freeze_linear_tangent(self, on_host: Optional[bool] = None) -> None:
         """Precompute the per-time-level linear tangent components G_td
         (x-independent), so the refined step combines them as
         sum(K_params[td] * G_td) instead of re-assembling K_linear.  One
         'lin' assembly per time level with one-hot K_params; the ghost
         diagonal is subtracted (the combine adds it once).
 
+        ``on_host``: assemble the components on the CPU in float64
+        (``_host_lin_td64``, cached) and move them to the domain's device
+        in its dtype, instead of assembling them there.  None means on
+        for any workpiece without a lattice (unstructured meshes, whose
+        volume gather maps are too large to ship).
+
         Valid while geometry, controlpoint fields and global material
         constants stay fixed; call again after changing any of them."""
+        if on_host is None:
+            on_host = any(wp.mesh.lattice_shape is None
+                          for wp in self.workpieces)
         ghost = self._ghost_diag
+        if on_host:
+            comps = [self._tensor(G) for G in self._host_lin_td64()]
+            if ghost is not None:
+                comps = [c - ghost for c in comps]
+            self._k_linear_td = torch.stack(comps)
+            return
+        self._require_volume_tables("freeze_linear_tangent")
         state = self._runtime_state()
         comps = []
         for td in range(self.pattern.max_time_level + 1):
@@ -580,8 +770,11 @@ class FEM_Domain:
         device from float64 geometry, and R_nonaffine the (typically
         boundary-only) remainder that the step re-assembles per
         iteration, also in float64.  A_td and b are stored as float64
-        tensors.  The float64 volume tables are freed afterwards unless
-        a volume form is nonaffine (then the remainder needs them).
+        tensors.  When a host freeze already cached the float64 linear
+        components (``_host_lin_td64``) and every linear gradient is
+        affine, A_td is taken from them.  The float64 volume tables are
+        freed afterwards unless a volume form is nonaffine (then the
+        remainder needs them).
 
         For the two-float mode of the refined step it also records
         ``bnd_dofs``, the DOF rows the boundary elements read (None when
@@ -602,15 +795,24 @@ class FEM_Domain:
               "global_vars": {k: float(v)
                               for k, v in self.global_vars.items()},
               "user": self.user_state}
-        A_list = []
-        for td in range(L + 1):
-            st["K_params"] = self._one_hot_k_params(td, f64)
-            A_list.append(self._run_phase(st, "aff_lin")[1])
+        host = self._host_lin_td64_cache
+        if host is not None and self._all_forms_affine():
+            # aff_lin == lin: each host component holds the ghost
+            # regularizer once, which the refined operator excludes
+            ghost = self._ghost_diag
+            g64 = (ghost.to(_CPU, f64).numpy() if ghost is not None
+                   else 0.0)
+            A = torch.stack([self._tensor(c - g64, f64) for c in host])
+        else:
+            A_list = []
+            for td in range(L + 1):
+                st["K_params"] = self._one_hot_k_params(td, f64)
+                A_list.append(self._run_phase(st, "aff_lin")[1])
+            A = torch.stack(A_list)
         st["K_params"] = self._tensor(np.ones(L + 1), f64)
         b64 = self._run_phase(st, "aff_res")[0]
         del st
-        self._refined = self._refined_record(torch.stack(A_list), b64,
-                                             wp64)
+        self._refined = self._refined_record(A, b64, wp64)
 
     def _vol_nonaffine(self) -> bool:
         """True when a volume weak form has a nonaffine residue."""
@@ -651,10 +853,12 @@ class FEM_Domain:
                 else np.zeros(0, np.int64))
         return torch.as_tensor(rows.astype(np.int64), device=self.device)
 
-    def _f64_tables(self, volume: bool = True) -> list:
-        """float64 geometry tables and fields on the domain's device."""
-        wp64 = self._geometry_state(torch.float64, volume=volume)
-        for wps, fields in zip(wp64, self._fields(torch.float64)):
+    def _f64_tables(self, volume: bool = True, device=None) -> list:
+        """float64 geometry tables and fields on ``device`` (the
+        domain's by default)."""
+        wp64 = self._geometry_state(torch.float64, volume=volume,
+                                    device=device)
+        for wps, fields in zip(wp64, self._fields(torch.float64, device)):
             wps["fields"] = fields
         return wp64
 
@@ -680,6 +884,7 @@ class FEM_Domain:
         x is not the one production steps around (before a converge-once
         pass with an adaptive Krylov inner solver) and tune once at the
         converged state instead."""
+        self._require_volume_tables("setup_mg")
         hier = multigrid.hierarchy_for_domain(self, **mg_opts)
         self._mg_hier = hier    # steps must reuse the SAME hierarchy
         ga = self.time_discretization
@@ -701,6 +906,144 @@ class FEM_Domain:
         self._mg_cheb = multigrid.tune_chebyshev(op, n, self.dtype,
                                                  self._mg_spectrum)
 
+    # ------------------------------------------------------------------
+    # freeze persistence: repeated runs of one problem reload the
+    # freezes instead of computing them
+    # ------------------------------------------------------------------
+    #: the freezes save_freezes writes; the auxiliary-space multigrid's
+    #: three are None until that preconditioner is ported (skipped)
+    _FREEZE_ATTRS = ("_k_linear_td", "_refined", "_auxmg", "_auxmg_cheb",
+                     "_auxmg_spectrum", "_mg_frozen", "_mg_hier",
+                     "_mg_cheb", "_mg_spectrum")
+
+    def save_freezes(self, path: str) -> None:
+        """Write the production freezes (linear tangent components, the
+        refined float64 operator, the multigrid state and its tuned
+        spectrum) to ``path`` as a pickle of numpy arrays and plain
+        Python objects, with the storage layout's fingerprint.  Not
+        written: the volume tables the refined record shares with the
+        runtime state, its float64 field columns (both rebuilt from the
+        live domain on load), pack plans and packed values, device
+        constants and gather maps (all rebuilt at first use).  The
+        validity contract is the caller's: reload only for the same
+        mesh, weak forms, fields and global constants."""
+        blob = {}
+        for name in self._FREEZE_ATTRS:
+            val = getattr(self, name, None)
+            if val is None:
+                continue
+            if name == "_refined":
+                val = self._refined_to_save(val)
+            blob[name] = _to_host(val)
+        blob["_layout_fp"] = self._layout_fp()
+        with open(path, "wb") as f:
+            pickle.dump(blob, f, protocol=4)
+
+    def _refined_to_save(self, ref: dict) -> dict:
+        """The refined record with the sentinels of save_freezes in place
+        of the state's volume tables and the float64 fields, and without
+        the two-float mode's packed pairs."""
+        ref = {k: v for k, v in ref.items() if k != "A_packed"}
+        if ref.get("wp") is not None:
+            wp = []
+            for w, wps in zip(ref["wp"], self.state["wp"]):
+                w = dict(w)
+                if w.get("el") is not None and w["el"] is wps["el"]:
+                    w["el"] = _STATE_EL
+                if isinstance(w.get("fields"), dict):
+                    w["fields"] = _MESH_FIELDS64
+                wp.append(w)
+            ref["wp"] = wp
+        return ref
+
+    def _layout_fp(self) -> tuple:
+        """The storage layout's fingerprint: (DOF count, stored values,
+        dense values, BSR tail block size), plus the tail's storage
+        order version when there is a BSR tail."""
+        lo = self.pattern.offset_layout
+        fp = (self.pattern.basicfield_size, lo.n_storage, lo.n_dense,
+              lo.blk_b)
+        if lo.blk_b:
+            fp += ("tail-cm2",)
+        return fp
+
+    def load_freezes(self, path: str) -> None:
+        """Counterpart of save_freezes: restore the freezes onto the
+        domain's device, each array in the dtype it was saved in.  The
+        refined record's volume tables are the live state's (re-attached
+        by identity; a full copy in an older file is dropped, not
+        loaded) unless a volume form is nonaffine, and its float64
+        fields are rebuilt from the mesh.  Raises StaleFreezeCache (a
+        ValueError) when the file was saved under another layout."""
+        with open(path, "rb") as f:
+            blob = pickle.load(f)
+        fp = self._layout_fp()
+        saved_fp = blob.pop("_layout_fp", None)
+        if saved_fp is not None and tuple(saved_fp) != fp:
+            raise StaleFreezeCache(
+                f"load_freezes: stale cache {path}: saved layout "
+                f"{tuple(saved_fp)} != current {fp}; recompute the freezes")
+        layout = self.pattern.offset_layout
+        # with an affine volume the record's volume tables alias the
+        # state's, so any table in the file is a copy of those
+        shares_el = not self._vol_nonaffine()
+        for name, val in blob.items():
+            attach, refields = [], []
+            if name == "_refined" and val.get("wp") is not None:
+                val = dict(val)
+                val["wp"] = [dict(w) for w in val["wp"]]
+                for i, w in enumerate(val["wp"]):
+                    el = w.get("el")
+                    if el is not None and (shares_el or _is_tag(el,
+                                                                _STATE_EL)):
+                        w["el"] = None
+                        attach.append(i)
+                    if _is_tag(w.get("fields"), _MESH_FIELDS64):
+                        w["fields"] = None
+                        refields.append(i)
+            val = _to_device(val, self.device, layout)
+            for i in attach:
+                val["wp"][i]["el"] = self.state["wp"][i]["el"]
+            if refields:
+                fields64 = self._fields(torch.float64)
+                for i in refields:
+                    val["wp"][i]["fields"] = fields64[i]
+            setattr(self, name, val)
+
+    def free_volume_tables(self) -> None:
+        """Release the volume element tables
+        (``state['wp'][i]['el']['itg_vals'/'weights']``; ``el_cp``
+        stays) for refined stepping of physics whose volume forms are all
+        affine: the refined step reads the frozen A_td and b and the
+        boundary-only nonaffine phases, so the tables are dead device
+        memory.  Call after ``freeze_refined_residual()``;
+        ``update_mesh()`` rebuilds them.  Paths that assemble volume
+        integrals refuse to run in between."""
+        ref = self._refined
+        if ref is None:
+            raise RuntimeError("call freeze_refined_residual() first")
+        if ref.get("wp_df") is not None or self._vol_nonaffine():
+            raise RuntimeError(
+                "free_volume_tables: volume-nonaffine physics evaluates "
+                "volume residues per iteration; the tables are live")
+        for i, wps in enumerate(self.state["wp"]):
+            if wps.get("el") is not None:
+                wps["el"] = {**wps["el"], "itg_vals": None, "weights": None}
+            if ref.get("wp") is not None and \
+                    ref["wp"][i].get("el") is not None:
+                ref["wp"][i] = {**ref["wp"][i], "el": wps["el"]}
+        self._volume_tables_freed = True
+
+    def _require_volume_tables(self, what: str) -> None:
+        """Fail fast, instead of deep inside assembly, when a path that
+        assembles volume integrals runs after free_volume_tables()."""
+        if self._volume_tables_freed:
+            raise RuntimeError(
+                f"{what} assembles volume integrals, but the volume "
+                "element tables were released by free_volume_tables(); "
+                "call update_mesh() to rebuild them (or keep to the "
+                "refined step, which does not need them)")
+
     def make_jitted_step(self, **kwargs):
         """The whole Newton step in one call (see
         jit_step.make_jitted_step; a host loop in PyTorch):
@@ -708,6 +1051,7 @@ class FEM_Domain:
             step = dom.make_jitted_step(sv_func=krylov.bicgstab)
             x, dx, res, iters = step(dom._runtime_state(), dom.x, t, dt)
         """
+        self._require_volume_tables("make_jitted_step")
         from .jit_step import make_jitted_step
         return make_jitted_step(self, **kwargs)
 
@@ -723,6 +1067,7 @@ class FEM_Domain:
         with ``max_newton=max_iter`` and ``kwargs``, then reused); each
         solver pass's (iterations, true residual) lands in
         ``self.solve_log``."""
+        self._require_volume_tables("update_one_step_jit")
         if self._jit_step is None:
             kwargs.setdefault("log", self.solve_log)
             self._jit_step = self.make_jitted_step(max_newton=max_iter,
@@ -740,6 +1085,7 @@ class FEM_Domain:
                         verbose: bool = False) -> float:
         ga = self.time_discretization
         L = self.pattern.max_time_level
+        self._require_volume_tables("update_one_step")
         self.t += self.dt
         ga.update_time(self.dt, L)
         state = self._runtime_state()
@@ -772,6 +1118,7 @@ class FEM_Domain:
         code recomputes converged integration-point quantities to update
         history state (replacing MetaFEM.jl's in-callback mutation,
         J2Plasticity.jl:201-208)."""
+        self._require_volume_tables("evaluate_at_itg")
         term = as_term(expr)
         if free_index(term):
             raise ValueError("evaluate_at_itg expects concrete indices")
@@ -804,3 +1151,4 @@ class FEM_Domain:
         meshes = [wp.mesh for wp in self.workpieces]
         assemblies = [wp.local_assembly for wp in self.workpieces]
         dessemble_x(self.x.cpu().numpy(), meshes, assemblies, self.pattern)
+        self.drop_host_caches()   # solution columns live in mesh.fields

@@ -52,14 +52,16 @@ def test_no_banned_import_in_any_source():
     assert not found, found
 
 
-def test_slice_runs_with_jax_and_reference_blocked():
+def test_slice_runs_with_jax_and_reference_blocked(tmp_path):
     """A fresh interpreter in which importing jax, jaxlib or metafem
     fails imports the port and chip_smoke.py, runs the slice phase, the
     flagship bench (small) and a BiCGStab(4) solve on a sorted-COO matrix
     on the CPU, with the solver menu, the jitted step, the 3D examples
-    and the multi-field examples imported, J2's return map run, and one
-    two-float (df32) refined step of the small flagship: lazy imports
-    inside functions are caught too."""
+    and the multi-field examples imported, J2's return map run, one
+    two-float (df32) refined step of the small flagship, and, with the io
+    and utils packages imported, a save and load of its freezes, a
+    checkpoint round trip, a VTK file and the memory report: lazy
+    imports inside functions are caught too."""
     code = (
         "import sys\n"
         "for m in ('jax', 'jaxlib', 'metafem'):\n"
@@ -111,7 +113,27 @@ def test_slice_runs_with_jax_and_reference_blocked():
         "x0 = twofloat.df_from_f64(dom.x.double())\n"
         "x, _, res, it = step(dom._runtime_state(), x0, 0.0, 1.0)\n"
         "assert isinstance(x, twofloat.DF) and res < 1e-6, (res, it)\n"
-        "print('DF32-OK')\n")
+        "print('DF32-OK')\n"
+        "import os\n"
+        "import metafem_torch.io, metafem_torch.utils\n"
+        "from metafem_torch.io import checkpoint\n"
+        f"d = {str(tmp_path)!r}\n"
+        "fz, ck = os.path.join(d, 'fz.pkl'), os.path.join(d, 'ck.npz')\n"
+        "dom.save_freezes(fz)\n"
+        "dom2 = bench.build_domain((8, 4), device='cpu')\n"
+        "dom2.load_freezes(fz)\n"
+        "assert torch.equal(dom2._k_linear_td, dom._k_linear_td)\n"
+        "assert torch.equal(dom2._refined['A'], dom._refined['A'])\n"
+        "dom.x = dom.x * 1.01\n"
+        "checkpoint.save_checkpoint(dom, ck)\n"
+        "checkpoint.load_checkpoint(dom2, ck)\n"
+        "assert torch.equal(dom2.x, dom.x)\n"
+        "w = dom.workpieces[0]\n"
+        "metafem_torch.io.write_vtk(os.path.join(d, 'o.vtk'), w.mesh,\n"
+        "                           w.disc.element_type)\n"
+        "rep = metafem_torch.utils.memory_report(dom2)\n"
+        "assert rep['TOTAL (MB)'] > 0, rep\n"
+        "print('PERSIST-OK')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=300, env=env, cwd=REPO)
@@ -120,6 +142,7 @@ def test_slice_runs_with_jax_and_reference_blocked():
     assert "BENCH-OK" in proc.stdout
     assert "MENU-OK" in proc.stdout
     assert "DF32-OK" in proc.stdout
+    assert "PERSIST-OK" in proc.stdout
 
 
 def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
