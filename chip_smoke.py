@@ -6,9 +6,10 @@
 from the root of the repository.  Phases, one line or more each:
 
 1. environment: torch and CUDA versions, the card's name and power limit;
-2. build: both kernel sources compiled with nvcc, in parallel (the
-   SpMV's holds its float64, float32 and two-float entry points), and
-   ptxas's report of their registers and spills;
+2. build: the three kernel sources compiled with nvcc, in parallel (the
+   SpMV's holds its float64, float32 and two-float entry points; the
+   BSR tail's its float64 and float32 ones), and ptxas's report of their
+   registers and spills;
 3. kernel parity: the packed block-offset SpMV against its plain
    PyTorch version and the dense formula on the README thermal operator
    (f64, f32) and a C=2 elastic one, with times from CUDA events (back
@@ -73,11 +74,27 @@ from the root of the repository.  Phases, one line or more each:
    its A_td; ``j2_plasticity``'s mixed-hardening
    sequence within 1.5e-3 of the analytic elongations, its history on
    the card;
-10. the ``kernels`` JSON line, then the device JSON line last.
+10. the unstructured path (``phase_unstructured``): pikachu's weak form
+    on a jittered order-2 tet brick at nel=(73,51,51) (1,369,650 DOF,
+    f32 domain, f64 residuals; ``examples/pikachu_brick.py``) through
+    ``benchmarks/pikachu_scale.py``'s production path: each one-time
+    phase's seconds (the host freezes, ``setup_auxmg`` by part); the
+    BSR-tail kernel on the f32 tangent and the f64 A_td against its
+    plain version (bitwise repeats), timed back to back and with L2
+    flushed beside its bytes bound, CSR ``torch.mv`` over the tail's
+    structural entries and ``torch.sparse_bsr_tensor``; 3 timed refined
+    steps (auxmg, BiCGStab) below 1e-6 with the launches of both kernels
+    per step and the device-busy time, a bitwise repeat; the sparse
+    smoother with the exact inner operator (its root against the full
+    smoother's) and with the sparsified one (reported); one
+    ``update_one_step`` with ``make_iterative_solver(precond="auxmg")``,
+    its T within 1e-5 of the refined root;
+11. the ``kernels`` JSON line, then the device JSON line last.
 
 Each path (gather probe, README step, flagship, the df32 flagship, the
 warm-started flagship, each 3D load step, each thermo-elastic step and
-the resumed ones, each cavity Reynolds number, the df32 cavity) runs
+the resumed ones, each cavity Reynolds number, the df32 cavity, the
+unstructured steps) runs
 with the kernels' launch counts set to 0 just before it and read just
 after; every path must have launched its kernel.  Every failure raises
 and exits non-zero.
@@ -131,6 +148,16 @@ TE_E = 24
 TE_STEADY_E = 1
 CAVITY_E = 40
 J2_E = 2
+#: the unstructured path: pikachu's weak form on a jittered order-2 tet
+#: brick at nel=(73,51,51), 1,369,650 DOF (pikachu refine-2: 1,358,969)
+UNSTRUCT_NEL = (73, 51, 51)
+#: benchmarks/pikachu_scale.py's refined step
+PIKACHU_STEP = dict(maxiter=12, max_refine=4, max_pass=1, forcing=0.3)
+#: the unstructured roots that other paths are held to are converged to
+#: this residual (float64 residuals reach it); two such roots of the same
+#: problem, by two smoothers, agree within ROOT_REL * max|x|
+ROOT_TOL = 1e-9
+ROOT_REL = 1e-7
 #: the numbers of each SpMV operator in the kernels line
 SPMV_KEYS = ("ms", "cold_ms", "plain_ms", "library_ms", "bound_ms",
              "packed_bound_ms", "storage_bound_ms", "pack_ms", "plan_build_s",
@@ -163,6 +190,11 @@ def _time_ms(fn, reps: int = 25, warmup: int = 3,
     return cuda_time_ms(fn, reps=reps, warmup=warmup, graph=graph)
 
 
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def phase_environment(device) -> dict:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -176,23 +208,24 @@ def phase_environment(device) -> dict:
 
 
 def phase_build() -> float:
-    """Both kernels' sources compiled at once (one nvcc each), then
+    """The kernels' sources compiled at once (one nvcc each), then
     loaded."""
     from concurrent.futures import ThreadPoolExecutor
     from metafem_torch import buildlib
     from metafem_torch.benchmarks import gather_probe
-    from metafem_torch.linsolve import offset_spmv
+    from metafem_torch.linsolve import bsr_tail, offset_spmv
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        libs = list(pool.map(buildlib.build_cuda,
-                             ("offset_spmv", "gather_probe")))
+    sources = ("offset_spmv", "gather_probe", "bsr_tail")
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        libs = list(pool.map(buildlib.build_cuda, sources))
     offset_spmv.load_library()
     gather_probe.load_library()
+    bsr_tail.load_library()
     sec = time.perf_counter() - t0
     flags = " ".join(buildlib.NVCC_FLAGS)
     print(f"[build] offset_spmv.cu (float64, float32 and two-float "
-          f"entry points) and gather_probe.cu with nvcc {flags}: "
-          f"{sec:.2f} s")
+          f"entry points), gather_probe.cu and bsr_tail.cu (float64 and "
+          f"float32) with nvcc {flags}: {sec:.2f} s")
     for lib in libs:
         for line in buildlib.build_log(lib).splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
@@ -1844,6 +1877,450 @@ def _j2_path(device, e_number) -> dict:
             "s": wall}
 
 
+# ---------------------------------------------------------------------------
+# the unstructured path: BSR tail, auxiliary-space multigrid, pikachu step
+# ---------------------------------------------------------------------------
+
+def _bsr_numbers(A, rng, device, label) -> dict:
+    """The BSR-tail kernel on A's tail (its own float type) against its
+    plain version on the card (max relative error, a bitwise repeat),
+    timed with CUDA events back to back (``ms``) and with L2 flushed
+    (``cold_ms``), beside the plain version, CSR ``torch.mv`` over the
+    tail's structural entries (``library_ms``) and, where PyTorch runs
+    it, ``torch.sparse_bsr_tensor``'s product over the same blocks.
+    ``bound_ms`` counts what the product needs, as ``_spmv_numbers``
+    does: the values of the tail's structural entries, x read once and
+    y written once, two operations per entry.  ``storage_bound_ms``
+    counts what the BSR storage makes the kernel move: the 64 nb stored
+    values (93% of them zeros on the brick), the nb column ids and the
+    run tables once, each distinct x block once, and the touched y rows
+    read and written once (the kernel adds into y)."""
+    from metafem_torch.linsolve import bsr_tail
+    lo = A.layout
+    dtype = A.vals.dtype
+    b, nb, n = lo.blk_b, lo.n_coo, lo.n
+    t = A._tables()
+    tail = A.vals[lo.n_dense:]
+    cols, rs, rr = A.coo_cols, t["run_start"], t["run_row"]
+    x = torch.as_tensor(rng.standard_normal(n), dtype=dtype, device=device)
+
+    def fresh():
+        return torch.zeros(n, dtype=dtype, device=device)
+    y1 = bsr_tail.tail_mv(tail, x, fresh(), cols, rs, rr, b)
+    y2 = bsr_tail.tail_mv(tail, x, fresh(), cols, rs, rr, b)
+    _sync(device)
+    bitwise = bool(torch.equal(y1, y2))
+    yp = bsr_tail.bsr_tail_mv_plain(tail, x, fresh(), cols, rs, rr, b)
+    err = float((y1 - yp).abs().max())
+    rel = err / float(yp.abs().max())
+    y = fresh()
+
+    def kernel():
+        bsr_tail.tail_mv(tail, x, y, cols, rs, rr, b)
+    ms = _time_ms(kernel)
+    cold_ms = _time_cold_ms(kernel, device)
+    plain_ms = _time_ms(lambda: bsr_tail.bsr_tail_mv_plain(
+        tail, x, y, cols, rs, rr, b), reps=5, warmup=1)
+    keep = A.structural_mask()
+    keep[:lo.n_dense] = False
+    rows, cols_e, pos = A._triplets(keep)
+    del keep
+    nnz = pos.numel()
+    import warnings
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # "beta state"
+        csr = torch.sparse_coo_tensor(
+            torch.stack([rows, cols_e]), A.vals[pos], (n, n),
+            check_invariants=False).coalesce().to_sparse_csr()
+    del rows, cols_e, pos
+    lib_err = float((torch.mv(csr, x) - y1).abs().max()) / float(
+        yp.abs().max())
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    if not lib_err <= tol:
+        raise AssertionError(f"CSR yardstick of the tail disagrees: "
+                             f"{lib_err}")
+    library_ms = _time_ms(lambda: torch.mv(csr, x))
+    del csr
+    bsr_ms, bsr_note = None, "ran"
+    try:
+        crow = torch.searchsorted(A.coo_rows, torch.arange(
+            lo.n_block_rows + 1, device=device))
+        blocks = tail.view(b, b, nb).permute(2, 0, 1).contiguous()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            Ab = torch.sparse_bsr_tensor(
+                crow, cols, blocks, size=(lo.n_block_rows * b,) * 2)
+        xp = torch.zeros(lo.n_block_rows * b, dtype=dtype, device=device)
+        xp[:n] = x
+        yb = torch.mv(Ab, xp)[:n]
+        b_err = float((yb - y1).abs().max()) / float(yp.abs().max())
+        if not b_err <= tol:
+            raise AssertionError(f"torch.sparse_bsr_tensor product of the "
+                                 f"tail disagrees: {b_err}")
+        bsr_ms = _time_ms(lambda: torch.mv(Ab, xp))
+        del Ab, blocks, xp, yb
+    except (RuntimeError, NotImplementedError, TypeError) as e:
+        bsr_note = f"did not run: {str(e).splitlines()[0][:160]}"
+    rate = _peak_bytes(torch.cuda.get_device_name(device))
+    peak = PEAK_FLOPS[str(dtype).split(".")[1]]
+    isz = A.vals.element_size()
+    n_runs = rr.numel()
+    x_blocks = int(torch.unique(cols).numel())
+    t_bytes = (nnz + 2 * n) * isz / rate
+    t_ops = 2 * nnz / peak
+    bound_ms = 1e3 * max(t_bytes, t_ops)
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    storage_bound_ms = 1e3 * max(
+        (64 * nb * isz + nb * 8 + (2 * n_runs + 1) * 8
+         + 2 * n_runs * b * isz + x_blocks * b * isz) / rate,
+        2 * 64 * nb / peak)
+    out = {"ms": ms, "cold_ms": cold_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "bsr_library_ms": bsr_ms,
+           "bsr_library": bsr_note, "bound_ms": bound_ms,
+           "bound_by": bound_by, "storage_bound_ms": storage_bound_ms,
+           "max_abs_err": err, "rel": rel, "bitwise": bitwise,
+           "nb": nb, "n_runs": n_runs, "nnz": nnz,
+           "fill": nnz / (64 * nb), "tail_bytes": 64 * nb * isz}
+    print(f"[unstructured] bsr_tail {label} {dtype} (nb={nb}, {n_runs} "
+          f"block rows, {nnz} structural entries = {100 * out['fill']:.1f}% "
+          f"of the 64 nb stored): max|y-y_plain|/max|y| {rel:.3e} (abs "
+          f"{err:.3e}), repeat {'bitwise equal' if bitwise else 'DIFFERS'}; "
+          f"kernel {ms:.4f} ms, {cold_ms:.4f} ms with L2 flushed; plain "
+          f"{plain_ms:.4f} ms; CSR torch.mv {library_ms:.4f} ms; "
+          f"torch.sparse_bsr_tensor mv "
+          f"{'%.4f ms' % bsr_ms if bsr_ms is not None else bsr_note}; "
+          f"structural bound {bound_ms:.4f} ms ({bound_by}; "
+          f"{100 * bound_ms / ms:.1f}% of it, {100 * bound_ms / cold_ms:.1f}%"
+          f" cold; CSR torch.mv {100 * bound_ms / library_ms:.1f}%); "
+          f"whole-storage bound {storage_bound_ms:.4f} ms "
+          f"({100 * storage_bound_ms / ms:.0f}% of it)")
+    tol_k = 1e-12 if dtype == torch.float64 else 1e-6
+    if not (rel <= tol_k and bitwise):
+        raise AssertionError(f"bsr_tail {label} {dtype}: rel {rel}, "
+                             f"bitwise {bitwise}")
+    return out
+
+
+def _sparse_smooth_check(A, dom, rng, device, label) -> dict:
+    """The sparsified smoothing operator of setup_auxmg(smooth='sparse')
+    (``auxmg.SparseSmoothOp``, built on A as the refined step builds it)
+    held on the card to (1) the lumping invariant, S 1 = A 1, and (2) a
+    plain product at random x: the dense formula (``group_mv_plain``) on
+    the block-offset storage, plus the lumped row sums, plus the tail's
+    diagonal blocks (``coo_rows == coo_cols``) through
+    ``bsr_tail_mv_plain``.  Each error is relative to the scale of its
+    sums' rounding, max_i sum_j |a_ij| |x_j| (x = 1, then the random
+    x); the gates are 1e-6 (f32) and 1e-12 (f64)."""
+    from metafem_torch.linsolve import auxmg, bsr_tail, offset_spmv
+    from metafem_torch.linsolve.block_offset import OffsetMatrix
+    tree, (desc, hier) = dom._auxmg
+    lo = A.layout
+    dtype = A.vals.dtype
+    S = auxmg.AuxMGOperator(A, auxmg.refresh_tangent(A, tree, desc), hier,
+                            desc)._smoother()
+    if not isinstance(S, auxmg.SparseSmoothOp):
+        raise AssertionError(f"smooth='sparse' built {type(S).__name__}")
+    ones = torch.ones(lo.n, dtype=dtype, device=device)
+    x = torch.as_tensor(rng.standard_normal(lo.n), dtype=dtype,
+                        device=device)
+    A_abs = OffsetMatrix.from_values(A.vals.abs(), lo)
+    scale, scale_x = (float(A_abs.mv(v).max()) for v in (ones, x.abs()))
+    del A_abs
+    lump_rel = float((S.mv(ones) - A.mv(ones)).abs().max()) / scale
+    (grp,) = lo.pallas_groups
+    slab = A.vals[grp.base:grp.base + len(grp.units) * grp.n_off
+                  * grp.n_cp].view(len(grp.units), grp.n_off, grp.n_cp)
+    y = offset_spmv.group_mv_plain(
+        slab, x.view(grp.n_vars, grp.n_cp), grp,
+        torch.empty(grp.n_vars, grp.n_cp, dtype=dtype,
+                    device=device)).reshape(-1) + S.lump * x
+    b, nb = lo.blk_b, lo.n_coo
+    sel = torch.as_tensor(np.flatnonzero(lo.coo_rows == lo.coo_cols),
+                          dtype=torch.int64, device=device)
+    diag_tail = A.vals[lo.n_dense:].view(b, b, nb)[:, :, sel].reshape(-1)
+    bsr_tail.bsr_tail_mv_plain(
+        diag_tail.contiguous(), x, y, A.coo_cols[sel],
+        torch.arange(sel.numel() + 1, device=device), A.coo_rows[sel], b)
+    mv_rel = float((S.mv(x) - y).abs().max()) / scale_x
+    tol = 1e-12 if dtype == torch.float64 else 1e-6
+    print(f"[unstructured] SparseSmoothOp on the {label} ({dtype}): "
+          f"|S 1 - A 1| {lump_rel:.3e}, |S x - plain| {mv_rel:.3e} "
+          f"(scales max |A| 1 {scale:.4e}, max |A| |x| {scale_x:.4e}; "
+          f"{sel.numel()} diagonal blocks of {nb}); gate {tol:g}")
+    if not (lump_rel <= tol and mv_rel <= tol):
+        raise AssertionError(f"SparseSmoothOp {label} {dtype}: lumping "
+                             f"{lump_rel}, product {mv_rel}")
+    return {"lump_rel": lump_rel, "mv_rel": mv_rel, "scale": scale,
+            "scale_x": scale_x, "n_diag_blocks": int(sel.numel())}
+
+
+def _kernel_counts() -> tuple:
+    """(packed SpMV launches by float type, BSR-tail launches by float
+    type), as plain dicts."""
+    from metafem_torch.linsolve import bsr_tail, offset_spmv
+    return (dict(offset_spmv.group_mv.launches_by_dtype),
+            dict(bsr_tail.tail_mv.launches_by_dtype))
+
+
+def _count_diff(after, before) -> dict:
+    return {name: {str(k).split(".")[1]: a[k] - b[k] for k in a}
+            for name, a, b in zip(("packed", "bsr_tail"), after, before)}
+
+
+def _converge(step, state, x, tol, device, max_calls=40) -> tuple:
+    """benchmarks/pikachu_scale.py's converge: calls of the refined step
+    (at most max_refine refines each) until the residual is below tol or
+    falls by less than 15%; (seconds, residual, refines, x)."""
+    _sync(device)
+    t = time.perf_counter()
+    r_prev, refines = np.inf, 0
+    for _ in range(max_calls):
+        x, _, res, it = step(state, x, 0.0, 1.0)
+        refines += it
+        if res < tol or res >= 0.85 * r_prev:
+            break
+        r_prev = res
+    _sync(device)
+    return time.perf_counter() - t, res, refines, x
+
+
+def _tight_root(dom, x, device, **step_kw) -> tuple:
+    """x converged further by the refined step (auxmg, pikachu's inner
+    solve) to a residual of ROOT_TOL (float64 residuals reach it):
+    (root, its residual, refines)."""
+    from metafem_torch.linsolve import krylov
+    tol = dom.converge_tol
+    dom.converge_tol = ROOT_TOL
+    try:
+        step = dom.make_refined_step(sv_func=krylov.bicgstab,
+                                     precond="auxmg",
+                                     **{**PIKACHU_STEP, **step_kw})
+    finally:
+        dom.converge_tol = tol
+    _, res, it, root = _converge(step, dom._runtime_state(), x, ROOT_TOL,
+                                 device)
+    if not res < ROOT_TOL:
+        raise AssertionError(f"the unstructured root stalled at {res}")
+    return root, res, it
+
+
+def phase_unstructured(device, nel=UNSTRUCT_NEL, layout_opts=None) -> dict:
+    """The unstructured production path (benchmarks/pikachu_scale.py) on
+    pikachu's weak form over a jittered order-2 tet brick
+    (metafem_torch/examples/pikachu_brick.py), float32 domain, float64
+    residuals: the one-time phases, the BSR-tail kernel on the f32
+    tangent and the f64 A_td, 3 timed refined steps (auxmg with
+    smooth='full', BiCGStab, maxiter 12, forcing 0.3) with launches per
+    step and device-busy time, a bitwise repeat; one step with
+    smooth='sparse' and inner_operator='sparse'; one update_one_step
+    with make_iterative_solver(precond='auxmg'), its T within 1e-5 of
+    the refined step's root."""
+    from metafem_torch.examples import pikachu_brick
+    from metafem_torch.linsolve import bsr_tail, krylov, offset_spmv
+    from metafem_torch.linsolve.block_offset import OffsetMatrix
+    from metafem_torch.solver.jit_step import combine_klin
+    t_all = time.perf_counter()
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    once = {}
+
+    def tick(key, t0):
+        _sync(device)
+        once[key] = time.perf_counter() - t0
+        return time.perf_counter()
+
+    t0 = time.perf_counter()
+    dom, mesh = pikachu_brick.build(nel, device=device,
+                                    **(layout_opts or {}))
+    t0 = tick("build", t0)
+    lo = dom.pattern.offset_layout
+    n = dom.pattern.basicfield_size
+    n_struct_tail = int((lo.storage_of_slot >= lo.n_dense).sum())
+    (grp,) = lo.pallas_groups
+    print(f"[unstructured] pikachu_brick nel={tuple(nel)}: "
+          f"{len(mesh.el_cp)} tets, {n} DOF, {dom.dtype} domain; layout "
+          f"blk_b={lo.blk_b}, lattice_shape={mesh.lattice_shape}, n_dense="
+          f"{lo.n_dense} ({grp.n_off} dense offsets), nb={lo.n_coo} tail "
+          f"blocks in {lo.n_block_rows} block rows, tail fill "
+          f"{n_struct_tail / max(64 * lo.n_coo, 1):.4f} (structural "
+          f"entries / 64 nb), n_storage {lo.n_storage}")
+    if lo.blk_b != 8 or mesh.lattice_shape is not None:
+        raise AssertionError(f"unexpected unstructured layout: blk_b "
+                             f"{lo.blk_b}, lattice {mesh.lattice_shape}")
+    dom.freeze_linear_tangent()
+    t0 = tick("freeze_linear_tangent", t0)
+    dom.freeze_refined_residual()
+    t0 = tick("freeze_refined_residual", t0)
+    dom.setup_auxmg(smooth="full", verbose=True)
+    aux_s = dom._auxmg_timings
+    t0 = tick("setup_auxmg", t0)
+    dom.free_volume_tables()
+    tick("free_volume_tables", t0)
+    print("[unstructured] one-time " + ", ".join(
+        f"{k} {v:.2f} s" for k, v in once.items()) + " (setup_auxmg: "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in aux_s.items()) + ")")
+
+    # the BSR-tail kernel, then the packed dense-group kernel (the
+    # matrix's tailless view), on the f32 tangent and on the f64 A_td
+    state = dom._runtime_state()
+    rng = np.random.default_rng(20261017)
+    K_params = np.asarray(dom.time_discretization.K_params, np.float32)
+
+    def tangent32():
+        return OffsetMatrix.from_values(combine_klin(state, K_params), lo)
+    A32 = tangent32()
+    bsr32 = _bsr_numbers(A32, rng, device, "tangent")
+    spmv32 = _spmv_at_size(A32.dense_part(), rng, device,
+                           "tangent's dense part", tag="unstructured")
+    del A32
+    A64 = OffsetMatrix.from_values(dom._refined["A"][0], lo)
+    bsr64 = _bsr_numbers(A64, rng, device, "A_td")
+    spmv64 = _spmv_at_size(A64.dense_part(), rng, device,
+                           "A_td's dense part", tag="unstructured")
+    del A64
+    gc.collect()
+    if not spmv64["rel"] <= 1e-14:
+        raise AssertionError(f"f64 kernel disagrees: {spmv64['rel']}")
+    if not spmv32["rel"] <= 1e-6:
+        raise AssertionError(f"f32 kernel disagrees: {spmv32['rel']}")
+
+    # the refined step as pikachu_scale.py runs it
+    step = dom.make_refined_step(sv_func=krylov.bicgstab, precond="auxmg",
+                                 **PIKACHU_STEP)
+    x0 = dom.x
+    tol = dom.converge_tol
+    offset_spmv.reset_launches()
+    bsr_tail.reset_launches()
+    cold_s, res_c, it_c, x_new = _converge(step, state, x0, tol, device)
+    trials = []
+    for k in range(3):
+        x1 = x_new * (1.0 + 1e-4 * (k + 1))
+        before = _kernel_counts()
+        s, res, it, x_new = _converge(step, state, x1, tol, device)
+        trials.append({"ms": 1e3 * s, "residual": res, "refines": it,
+                       "launches": _count_diff(_kernel_counts(), before)})
+    counts = _kernel_counts()
+    path = {"packed": sum(counts[0].values()),
+            "bsr_tail": sum(counts[1].values())}
+    path_by_type = _count_diff(counts, ({k: 0 for k in counts[0]},
+                                        {k: 0 for k in counts[1]}))
+    if path["packed"] <= 0 or path["bsr_tail"] <= 0 or not all(
+            min(sum(v.values()) for v in t["launches"].values()) > 0
+            for t in trials):
+        raise AssertionError(f"the unstructured path launched {path}, per "
+                             f"step {[t['launches'] for t in trials]}")
+    if not (res_c < tol and all(t["residual"] < tol for t in trials)):
+        raise AssertionError(f"unstructured steps: cold {res_c}, {trials}")
+    n_prof, kernels = _kernel_profile(
+        lambda: _converge(step, state, x1, tol, device), device)
+    busy = sum(kernels.values())
+    bsr_busy = sum(v for k_, v in kernels.items() if "bsr_tail" in k_)
+    xa = _converge(step, state, x1, tol, device)[3]
+    xb = _converge(step, state, x1, tol, device)[3]
+    if not torch.equal(xa, xb):
+        raise AssertionError("two unstructured steps from one x differ")
+    root, res_root, it_root = _tight_root(dom, x_new, device)
+    ms = float(np.median([t["ms"] for t in trials]))
+    finals = [float(f"{t['residual']:.3e}") for t in trials]
+    print(f"[unstructured] refined step (bicgstab, precond='auxmg', "
+          f"{PIKACHU_STEP}): converge from cold {cold_s:.2f} s, residual "
+          f"{res_c:.3e} in {it_c} refines; 3 warm steps median {ms:.2f} ms "
+          f"over {[round(t['ms'], 2) for t in trials]} ms, refines "
+          f"{[t['refines'] for t in trials]}, final residuals "
+          f"{finals}; "
+          f"device busy {busy:.2f} ms per step (torch.profiler; the BSR "
+          f"tail {bsr_busy:.2f} ms; {n_prof or 'not measured'} kernel "
+          f"launches); launches per step {[t['launches'] for t in trials]}; "
+          f"path launches {path}; two steps from one x bitwise equal; "
+          f"the root, converged further: residual {res_root:.3e} after "
+          f"{it_root} more refines")
+
+    # smooth='sparse': the sparsified smoother with the exact inner
+    # operator, then with the sparsified inner operator as well
+    t0 = time.perf_counter()
+    dom.setup_auxmg(smooth="sparse")
+    sp_setup_s = time.perf_counter() - t0
+    aux_sp = dom._auxmg_timings
+    smooth_check = {
+        "tangent": _sparse_smooth_check(tangent32(), dom, rng, device,
+                                        "tangent"),
+        "A_td": _sparse_smooth_check(OffsetMatrix.from_values(
+            dom._refined["A"][0], lo), dom, rng, device, "A_td")}
+    sparse = {}
+    for inner in ("exact", "sparse"):
+        step_sp = dom.make_refined_step(sv_func=krylov.bicgstab,
+                                        precond="auxmg",
+                                        inner_operator=inner, **PIKACHU_STEP)
+        sp_s, res_sp, it_sp, x_sp = _converge(step_sp, dom._runtime_state(),
+                                              x0, tol, device)
+        sparse[inner] = {"residual": res_sp, "refines": it_sp, "s": sp_s,
+                         "rel_to_full": float((x_sp - root).abs().max()
+                                              / root.abs().max())}
+        if inner == "exact" and res_sp < tol:
+            # its own root, converged as far as the full smoother's
+            x_t, res_t, _ = _tight_root(dom, x_sp, device)
+            sparse[inner].update(
+                root_residual=res_t, root_rel=float(
+                    (x_t - root).abs().max() / root.abs().max()))
+    print(f"[unstructured] smooth='sparse': setup {sp_setup_s:.2f} s "
+          f"({', '.join(f'{k} {v:.2f} s' for k, v in aux_sp.items())}); "
+          f"spectrum {dom._auxmg_spectrum}; " + "; ".join(
+              f"inner_operator='{k}': converge from cold {v['s']:.2f} s, "
+              f"residual {v['residual']:.3e} in {v['refines']} refines, x "
+              f"within {v['rel_to_full']:.3e} * max|x| of the full "
+              f"smoother's root" + (
+                  f" (its own root at {v['root_residual']:.3e} within "
+                  f"{v['root_rel']:.3e})" if "root_rel" in v else "")
+              for k, v in sparse.items()))
+
+    # update_one_step through make_iterative_solver(precond='auxmg')
+    dom.update_mesh()
+    dom.linear_solver = dom.make_iterative_solver(precond="auxmg")
+    n_log = len(dom.solve_log)
+    t0 = time.perf_counter()
+    res_u = dom.update_one_step(max_iter=4)
+    _sync(device)
+    uos_s = time.perf_counter() - t0
+    x_u = dom.x.to(root.dtype)
+    rel_u = float((x_u - root).abs().max() / root.abs().max())
+    # its exact (float64) residual: the refined step with no refine
+    check = dom.make_refined_step(sv_func=krylov.bicgstab, precond="auxmg",
+                                  **{**PIKACHU_STEP, "max_refine": 0})
+    res_u64 = check(dom._runtime_state(), x_u, 0.0, 1.0)[2]
+    passes = [(it, float(f"{r:.3e}")) for it, r in dom.solve_log[n_log:]]
+    print(f"[unstructured] update_one_step with make_iterative_solver("
+          f"precond='auxmg', smooth='sparse' freeze): residual {res_u:.3e} "
+          f"(assembled in {dom.dtype}), its float64 residual "
+          f"{res_u64:.3e}; solver passes {passes}, {uos_s:.2f} s; T within "
+          f"{rel_u:.3e} * max|T| of the refined step's root")
+    peak = (torch.cuda.max_memory_allocated(device)
+            if device.type == "cuda" else 0)
+    phase_s = time.perf_counter() - t_all
+    print(f"[unstructured] peak device memory {peak / 2 ** 30:.2f} GiB; "
+          f"phase {phase_s:.1f} s")
+    ex = sparse["exact"]
+    if not (ex["residual"] < tol and ex["root_rel"] <= ROOT_REL):
+        raise AssertionError(f"sparse smoother: {ex}")
+    if not np.isfinite(sparse["sparse"]["residual"]):
+        raise AssertionError(f"sparse inner operator: {sparse['sparse']}")
+    if not (res_u < tol and rel_u <= 1e-5):
+        raise AssertionError(f"update_one_step: residual {res_u}, T off "
+                             f"{rel_u}")
+    return {"dof": n, "nel": list(nel), "n_dense": lo.n_dense,
+            "nb": lo.n_coo, "one_time_s": once, "setup_auxmg_s": aux_s,
+            "bsr32": bsr32, "bsr64": bsr64, "spmv32": spmv32,
+            "spmv64": spmv64, "step_ms": ms,
+            "busy_ms": busy, "bsr_busy_ms": bsr_busy, "trials": trials,
+            "path_launches": path, "path_launches_by_type": path_by_type,
+            "cold_s": cold_s, "sparse": sparse, "sparse_setup_s": aux_sp,
+            "sparse_smooth_check": smooth_check,
+            "update_one_step": {"residual": res_u, "residual_f64": res_u64,
+                                "s": uos_s, "rel_to_refined": rel_u},
+            "peak_bytes": peak, "s": phase_s}
+
+
 def phase_multifield(device, te_e=TE_E, steady_e=TE_STEADY_E,
                      cavity_e=CAVITY_E, j2_e=J2_E) -> dict:
     """The multi-field and history-variable paths: thermo-elasticity at
@@ -1882,6 +2359,7 @@ def main() -> None:
     run("persist", lambda dev: phase_persist(dev, flag.pop("cold")))
     p3d = run("3d", phase_3d)
     mfp = run("multifield", phase_multifield)
+    uns = run("unstructured", phase_unstructured)
     print("[time] " + ", ".join(f"{k} {v:.2f} s" for k, v in times.items())
           + f", total {time.perf_counter() - t_start:.2f} s on {env['smi']}")
     s32 = flag["spmv32"]
@@ -1929,14 +2407,28 @@ def main() -> None:
             "f32": numbers(p3d["spmv32"])},
         "thermal_elasticity_3d": multifield_numbers(mfp["te"]),
         "cavity_2d": multifield_numbers(mfp["cavity"]),
+        # the unstructured path's one dense group (59 offsets, Morton
+        # numbering), the tangent's and A_td's tailless views
+        "unstructured": {
+            **numbers(uns["spmv64"]),
+            "max_rel_err_f64": uns["spmv64"]["rel"],
+            "max_rel_err_f32": uns["spmv32"]["rel"],
+            "launches": uns["path_launches"]["packed"],
+            "launches_by_type": uns["path_launches_by_type"]["packed"],
+            "launches_per_step": [t["launches"]["packed"]
+                                  for t in uns["trials"]],
+            "dof": uns["dof"], "n_dense": uns["n_dense"],
+            "f32": numbers(uns["spmv32"])},
         "max_rel_err_f64": max(kern["max_rel_err_f64"], flag["spmv64"]["rel"],
                                p3d["spmv64"]["rel"],
                                mfp["te"]["spmv64"]["rel"],
-                               mfp["cavity"]["spmv64"]["rel"]),
+                               mfp["cavity"]["spmv64"]["rel"],
+                               uns["spmv64"]["rel"]),
         "max_rel_err_f32": max(kern["max_rel_err_f32"], s32["rel"],
                                p3d["spmv32"]["rel"],
                                mfp["te"]["spmv32"]["rel"],
-                               mfp["cavity"]["spmv32"]["rel"])}, {
+                               mfp["cavity"]["spmv32"]["rel"],
+                               uns["spmv32"]["rel"])}, {
         "name": "gather_probe", "route": "cuda",
         "source": "metafem_torch/csrc/gather_probe.cu",
         "replaces": "benchmarks/pallas_gather_probe.py:25",
@@ -1973,7 +2465,26 @@ def main() -> None:
                           if k != "trials"},
         "cavity_2d": {**{k: v for k, v in mfp["cavity"]["df32"].items()
                          if k != "df_spmv"},
-                      **mfp["cavity"]["df32"]["df_spmv"]}}]}))
+                      **mfp["cavity"]["df32"]["df_spmv"]}}, {
+        "name": "bsr_tail_spmv", "route": "cuda",
+        "source": "metafem_torch/csrc/bsr_tail.cu",
+        "replaces": ("metafem/linsolve/block_offset.py:372 (_blk_tail_mv, "
+                     "XLA; no Pallas kernel)"),
+        # the unstructured path's launches; the numbers of its f32
+        # tangent's tail at 1,369,650 DOF
+        "launches": uns["path_launches"]["bsr_tail"],
+        "max_abs_err": uns["bsr32"]["max_abs_err"],
+        "ms": uns["bsr32"]["ms"], "plain_ms": uns["bsr32"]["plain_ms"],
+        "bound_ms": uns["bsr32"]["bound_ms"],
+        "bound_by": uns["bsr32"]["bound_by"],
+        # CSR torch.mv over the tail's structural entries
+        "library_ms": uns["bsr32"]["library_ms"],
+        "f32_tangent": uns["bsr32"], "f64_A_td": uns["bsr64"],
+        "launches_per_step": [t["launches"] for t in uns["trials"]],
+        "unstructured": {k: v for k, v in uns.items()
+                         if k not in ("bsr32", "bsr64", "spmv32", "spmv64",
+                                      "trials")},
+        "steps": uns["trials"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

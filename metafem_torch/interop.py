@@ -14,7 +14,9 @@ import numpy as np
 import torch
 
 from .config import resolve_device
-from .linsolve.block_offset import OffsetLayout, OffsetMatrix, PallasGroup
+from .linsolve.auxmg import AuxDesc
+from .linsolve.block_offset import (OffsetLayout, OffsetMatrix, PallasGroup,
+                                    sorted_segment_plan)
 from .linsolve.multigrid import MGHierarchy, hierarchy_for_domain
 from .linsolve.spmv import SparseMatrix
 from .linsolve.twofloat import DF, df_to_f64
@@ -107,9 +109,34 @@ def _df_tree(tree, device):
                         device=device)
 
 
+def _aux_tree(tree: dict, dom) -> dict:
+    """The reference's auxmg tree (numpy leaves) as the port's: the
+    float leaves in the domain's dtype, the index leaves int64, and the
+    Pᵀ segment-sum plan (``cell_plan``) that the port builds at setup."""
+    dev = dom.device
+
+    def f(a):
+        return torch.tensor(np.asarray(a), dtype=dom.dtype, device=dev)
+    out = {}
+    for key, val in tree.items():
+        if val is None:
+            out[key] = None
+        elif key == "lat":
+            out[key] = tuple({k: f(v) for k, v in lvl.items()
+                              if v is not None} for lvl in val)
+        elif key in ("cell", "bd_sel", "bd_rows"):
+            out[key] = torch.tensor(np.asarray(val).astype(np.int64),
+                                    device=dev)
+        else:
+            out[key] = f(val)
+    out["cell_plan"] = sorted_segment_plan(np.asarray(tree["cell"]), dev)
+    return out
+
+
 def load_reference_freezes(dom, k_linear_td: Optional[np.ndarray] = None,
                            refined: Optional[Dict[str, np.ndarray]] = None,
-                           mg_frozen=None, mg_hier=None) -> None:
+                           mg_frozen=None, mg_hier=None, auxmg=None,
+                           auxmg_spectrum=None, auxmg_cheb=None) -> None:
     """Load the reference domain's freezes into the port's compiled
     domain, so each stage of the refined step can be compared alone:
 
@@ -124,7 +151,13 @@ def load_reference_freezes(dom, k_linear_td: Optional[np.ndarray] = None,
     - ``mg_frozen``: the reference's ``_mg_frozen`` with numpy leaves, a
       sequence of per-level dicts whose level-0 ``"A"`` holds ``vals``;
       ``mg_hier`` is any object with MGHierarchy's fields (default: the
-      port's hierarchy of ``dom``)."""
+      port's hierarchy of ``dom``);
+    - ``auxmg``: the reference's ``_auxmg`` pair (tree, (desc, hier)),
+      the tree with numpy leaves (cell, w, the lattice state ``lat``,
+      inv_diag, omega and, under smooth='sparse', bd_sel, bd_rows,
+      smooth_lump and smooth_bd), desc and hier any objects with
+      AuxDesc's and MGHierarchy's fields; ``auxmg_spectrum`` and
+      ``auxmg_cheb`` its tuned spectrum and Chebyshev enclosure."""
     dev = dom.device
     if k_linear_td is not None:
         dom._k_linear_td = torch.tensor(np.asarray(k_linear_td),
@@ -165,3 +198,16 @@ def load_reference_freezes(dom, k_linear_td: Optional[np.ndarray] = None,
                         else MGHierarchy(**{
                             f.name: getattr(mg_hier, f.name)
                             for f in dataclasses.fields(MGHierarchy)}))
+    if auxmg is not None:
+        tree, (desc, hier) = auxmg
+
+        def fields(cls, obj):
+            return cls(**{f.name: getattr(obj, f.name)
+                          for f in dataclasses.fields(cls)})
+        dom._auxmg = (_aux_tree(tree, dom),
+                      (fields(AuxDesc, desc), fields(MGHierarchy, hier)))
+    if auxmg_spectrum is not None:
+        dom._auxmg_spectrum = tuple(float(v) for v in auxmg_spectrum)
+    if auxmg_cheb is not None:
+        (lo, hi), rate = auxmg_cheb
+        dom._auxmg_cheb = ((float(lo), float(hi)), float(rate))

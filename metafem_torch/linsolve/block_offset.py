@@ -22,7 +22,9 @@ package's layout builder, so both packages agree on the storage order.
 The device half is ``OffsetMatrix``: ``mv`` packs each dense group's
 structural values once (``offset_spmv.PackPlan``) and, on a CUDA tensor,
 launches the hand-written kernel of ``offset_spmv.py`` once per dense
-group; on a CPU tensor it runs that kernel's plain PyTorch version.
+group, then, where the layout has a BSR tail (unstructured meshes), the
+tail kernel of ``bsr_tail.py``, which adds into the same y; on a CPU
+tensor it runs those kernels' plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from . import offset_spmv
+from . import bsr_tail, offset_spmv
 
 #: dense segment: (row0, col0, n_cp, offset d, storage base)
 Segment = Tuple[int, int, int, int, int]
@@ -276,6 +278,45 @@ def build_offset_layout(wp_metas, nnz: int,
                         blk_b=use_blk)
 
 
+def tail_runs(layout: OffsetLayout):
+    """The run structure of the BSR tail's sorted block rows, computed on
+    the host once per layout and kept on it: (run_start int64 [n_runs +
+    1], the first block of each run with nb at the end; run_row int64
+    [n_runs], each run's block row; levels, ceil(log2) of the longest
+    run, the depth of the two-float product's segmented tree)."""
+    cached = layout.__dict__.get("_tail_runs")
+    if cached is None:
+        rows = np.asarray(layout.coo_rows)
+        starts = np.flatnonzero(
+            np.concatenate([[True], rows[1:] != rows[:-1]])) \
+            if rows.size else np.zeros(0, np.int64)
+        run_start = np.concatenate([starts, [rows.size]]).astype(np.int64)
+        lens = np.diff(run_start)
+        levels = (int(np.ceil(np.log2(max(int(lens.max()), 1))))
+                  if lens.size else 0)
+        cached = (run_start, rows[starts].astype(np.int64), levels)
+        layout._tail_runs = cached
+    return cached
+
+
+def dense_only_layout(layout: OffsetLayout) -> OffsetLayout:
+    """A tailless view of ``layout``: the same dense segments and groups,
+    an empty tail, ``n_storage = n_dense``.  ``storage_of_slot`` is the
+    parent's (it still holds tail positions, >= n_dense, which
+    ``structural_mask`` leaves out), and the view's device tables share
+    the parent's pack plans (the dense groups are identical).  Kept on
+    the parent."""
+    view = layout.__dict__.get("_dense_only_view")
+    if view is None:
+        view = dataclasses.replace(
+            layout, n_storage=layout.n_dense,
+            coo_rows=np.zeros(0, np.int32),
+            coo_cols=np.zeros(0, np.int32), blk_b=0)
+        view._dense_parent = layout
+        layout._dense_only_view = view
+    return view
+
+
 def sorted_segment_plan(seg: np.ndarray, device=None):
     """Plan of a deterministic segment sum over the static segment ids
     ``seg``: (order, lengths, unique ids), with ``order`` the stable sort
@@ -289,13 +330,15 @@ def sorted_segment_plan(seg: np.ndarray, device=None):
 
 
 def sorted_segment_sum(data: torch.Tensor, plan, num: int) -> torch.Tensor:
-    """out[s] = sum of data[i] over seg[i] == s, in the fixed order of the
+    """out[s] = sum of data[i] over seg[i] == s (data [len(seg), ...]), in
+    the fixed order of the
     plan (sorted_segment_plan, on data's device): a sorted segmented
     reduction and a write of each segment's sum to its own slot.  No
     atomics, so the result repeats bitwise on CUDA, where ``index_add_``
     would not."""
     order, lengths, uniq = plan
-    out = torch.zeros(num, dtype=data.dtype, device=data.device)
+    out = torch.zeros((num,) + tuple(data.shape[1:]), dtype=data.dtype,
+                      device=data.device)
     if len(uniq) == 0:
         return out
     out[uniq] = torch.segment_reduce(data[order], "sum", lengths=lengths)
@@ -304,16 +347,20 @@ def sorted_segment_sum(data: torch.Tensor, plan, num: int) -> torch.Tensor:
 
 def _device_tables(layout: OffsetLayout, device: torch.device) -> dict:
     """The layout's index tables on ``device``, copied from the host once
-    per (layout, device) and kept on the layout: the COO tail's rows and
-    columns and its segment-sum plans, the diagonal's storage positions,
-    each group's unit tables, and the pack plans of the SpMV (by vector
-    width).  A product, a scaling or a new matrix then copies nothing
-    from the host."""
+    per (layout, device) and kept on the layout: the tail's rows and
+    columns (block ids under a BSR tail) and its segment-sum plans, the
+    BSR tail's run plan (``tail_runs``), the diagonal's storage
+    positions, each group's unit tables, and the pack plans of the SpMV
+    (by vector width; a dense-only view shares its parent's).  A product,
+    a scaling or a new matrix then copies nothing from the host."""
     tables = layout.__dict__.setdefault("_device_tables", {})
     key = str(device)
     if key not in tables:
         def dev(a):
             return torch.as_tensor(np.asarray(a, np.int64), device=device)
+        parent = layout.__dict__.get("_dense_parent")
+        run_start, run_row = (tail_runs(layout)[:2] if layout.blk_b
+                              else ((), ()))
         tables[key] = {
             "coo_rows": dev(layout.coo_rows),
             "coo_cols": dev(layout.coo_cols),
@@ -322,7 +369,10 @@ def _device_tables(layout: OffsetLayout, device: torch.device) -> dict:
                     for g in layout.pallas_groups],
             "pbs": [dev([pb for _pd, pb in g.units])
                     for g in layout.pallas_groups],
-            "tail_plans": {}, "pack_plans": {}}
+            "run_start": dev(run_start), "run_row": dev(run_row),
+            "tail_plans": {},
+            "pack_plans": ({} if parent is None else
+                           _device_tables(parent, device)["pack_plans"])}
     return tables[key]
 
 
@@ -355,11 +405,13 @@ class OffsetMatrix:
     def _tables(self) -> dict:
         return _device_tables(self.layout, self.vals.device)
 
-    def _check_tail(self) -> None:
-        if self.layout.blk_b:
-            raise NotImplementedError(
-                "block-offset matrices with a BSR tail (blk_b > 0) are not "
-                "ported yet (ROADMAP.md section 1, item 5)")
+    def dense_part(self) -> "OffsetMatrix":
+        """The matrix without its tail, over ``dense_only_layout``: the
+        same values, and the same packed values (one pack serves both)."""
+        view = dense_only_layout(self.layout)
+        t = _device_tables(view, self.vals.device)
+        return OffsetMatrix(self.vals, t["coo_rows"], t["coo_cols"], view,
+                            _packed=self._packed)
 
     def _tail_plan(self, by: str):
         """The COO tail's segment-sum plan over its rows or its columns,
@@ -398,12 +450,22 @@ class OffsetMatrix:
                 self.vals[g.base:g.base + n_slab], self.pack_plans()[i])
         return self._packed[i]
 
+    def _tail_blocks(self) -> torch.Tensor:
+        """The BSR tail's values as the component-major [b, b, nb] view."""
+        lo = self.layout
+        return self.vals[lo.n_dense:].view(lo.blk_b, lo.blk_b, lo.n_coo)
+
+    def _blocked(self, v: torch.Tensor) -> torch.Tensor:
+        """v [n] zero-padded to whole blocks, as [n_block_rows, b]."""
+        return bsr_tail.blocked(v, self.layout.blk_b)
+
     def mv(self, x: torch.Tensor) -> torch.Tensor:
         """y = A x: one offset_spmv.group_mv per dense group on its packed
         values (the hand-written kernel on CUDA, its plain version on the
-        CPU) plus the COO tail as a sorted segment sum."""
+        CPU), then the tail: a BSR tail through bsr_tail.tail_mv (its
+        kernel on CUDA) adding into y, a scalar COO tail as a sorted
+        segment sum."""
         lo = self.layout
-        self._check_tail()
         covered = sum(g.n_vars * g.n_cp for g in lo.pallas_groups)
         y = (torch.empty if covered == lo.n else torch.zeros)(
             lo.n, dtype=x.dtype, device=x.device)
@@ -414,7 +476,11 @@ class OffsetMatrix:
             offset_spmv.group_mv(self.packed(i),
                                  x[sl].view(grp.n_vars, grp.n_cp), plans[i],
                                  out=y[sl].view(grp.n_vars, grp.n_cp))
-        if lo.n_coo:
+        if lo.blk_b:
+            t = self._tables()
+            bsr_tail.tail_mv(self.vals[lo.n_dense:], x, y, self.coo_cols,
+                             t["run_start"], t["run_row"], lo.blk_b)
+        elif lo.n_coo:
             y = y + sorted_segment_sum(
                 self.vals[lo.n_dense:] * x[self.coo_cols],
                 self._tail_plan("rows"), lo.n)
@@ -424,9 +490,9 @@ class OffsetMatrix:
         """y = A.T x: per dense group and offset d_k, the products
         vals[g, k, r] * x[pd_g, r] land at y[pb_g, r + d_k] (shifted
         slice adds in unit order, no atomics); the COO tail is a sorted
-        segment sum over the stable column order."""
+        segment sum over the stable column order, a BSR tail's block
+        products a sorted segment sum over the block columns."""
         lo = self.layout
-        self._check_tail()
         y = torch.zeros(lo.n, dtype=x.dtype, device=x.device)
         for grp in lo.pallas_groups:
             C, n_cp, n_off = grp.n_vars, grp.n_cp, grp.n_off
@@ -443,7 +509,17 @@ class OffsetMatrix:
                         yw[pb, d:] += prod[k, :n_cp - d]
                     else:
                         yw[pb, :n_cp + d] += prod[k, -d:]
-        if lo.n_coo:
+        if lo.blk_b:
+            b = lo.blk_b
+            B = self._tail_blocks()
+            xg = self._blocked(x)[self.coo_rows]               # [nb, b]
+            contrib = B[0] * xg[:, 0]                          # [b, nb]
+            for i in range(1, b):
+                contrib = contrib + B[i] * xg[:, i]
+            yb = sorted_segment_sum(contrib.t(), self._tail_plan("cols"),
+                                    lo.n_block_rows)
+            y = y + yb.reshape(-1)[:lo.n]
+        elif lo.n_coo:
             y = y + sorted_segment_sum(
                 self.vals[lo.n_dense:] * x[self.coo_rows],
                 self._tail_plan("cols"), lo.n)
@@ -476,18 +552,24 @@ class OffsetMatrix:
     def scale_cols(self, s: torch.Tensor) -> "OffsetMatrix":
         """A diag(s): entry (i, j) times s[j]."""
         lo = self.layout
-        self._check_tail()
         vals = self._scaled_groups(self.vals.clone(), s, by_row=False)
-        if lo.n_coo:
+        if lo.blk_b:
+            sc = self._blocked(s)[self.coo_cols].t()           # [b, nb]
+            tail = vals[lo.n_dense:].view(lo.blk_b, lo.blk_b, lo.n_coo)
+            tail.mul_(sc[None, :, :])          # entry (i, j) *= s[col j]
+        elif lo.n_coo:
             vals[lo.n_dense:] = vals[lo.n_dense:] * s[self.coo_cols]
         return OffsetMatrix(vals, self.coo_rows, self.coo_cols, lo)
 
     def scale_rows(self, s: torch.Tensor) -> "OffsetMatrix":
         """diag(s) A: entry (i, j) times s[i]."""
         lo = self.layout
-        self._check_tail()
         vals = self._scaled_groups(self.vals.clone(), s, by_row=True)
-        if lo.n_coo:
+        if lo.blk_b:
+            sc = self._blocked(s)[self.coo_rows].t()           # [b, nb]
+            tail = vals[lo.n_dense:].view(lo.blk_b, lo.blk_b, lo.n_coo)
+            tail.mul_(sc[:, None, :])          # entry (i, j) *= s[row i]
+        elif lo.n_coo:
             vals[lo.n_dense:] = vals[lo.n_dense:] * s[self.coo_rows]
         return OffsetMatrix(vals, self.coo_rows, self.coo_cols, lo)
 
@@ -497,12 +579,15 @@ class OffsetMatrix:
         and the diagonal.  Every other stored value is a zero that the
         assembly never touches: an offset that a row does not couple to,
         the rows of ghost control points (which hold only their
-        diagonal), the padding of the COO tail."""
+        diagonal), the padding of the COO tail, the unwritten entries of
+        the BSR tail's blocks.  A dense-only view (``dense_only_layout``)
+        leaves out its parent's tail positions."""
         lo = self.layout
         dev = self.vals.device
         keep = torch.zeros(lo.n_storage, dtype=torch.bool, device=dev)
-        keep[torch.as_tensor(lo.storage_of_slot, dtype=torch.int64,
-                             device=dev)] = True
+        sos = torch.as_tensor(lo.storage_of_slot, dtype=torch.int64,
+                              device=dev)
+        keep[sos[sos < lo.n_storage]] = True
         ds = lo.diag_storage[lo.diag_storage >= 0]
         keep[torch.as_tensor(ds, dtype=torch.int64, device=dev)] = True
         return keep
@@ -510,10 +595,10 @@ class OffsetMatrix:
     def _triplets(self, keep=None):
         """(rows, cols, storage positions), int64 on vals' device, of the
         stored entries whose column lies inside their block: the dense
-        segments in storage order, then the scalar COO tail.  ``keep``
-        (a bool mask over the storage) selects a subset."""
+        segments in storage order, then the tail (a BSR tail's entries
+        component by component, those of padded edge blocks left out).
+        ``keep`` (a bool mask over the storage) selects a subset."""
         lo = self.layout
-        self._check_tail()
         dev = self.vals.device
         rows, cols, pos = [], [], []
         for (row0, col0, n_cp, d, b) in lo.segments:
@@ -524,7 +609,21 @@ class OffsetMatrix:
             rows.append(row0 + r)
             cols.append(col0 + d + r)
             pos.append(b + r)
-        if lo.n_coo:
+        if lo.blk_b:
+            b, nb = lo.blk_b, lo.n_coo
+            k = torch.arange(nb, device=dev)
+            for i in range(b):
+                for j in range(b):
+                    p = lo.n_dense + (i * b + j) * nb + k
+                    r = self.coo_rows * b + i
+                    c = self.coo_cols * b + j
+                    sel = (r < lo.n) & (c < lo.n)
+                    if keep is not None:
+                        sel &= keep[p]
+                    rows.append(r[sel])
+                    cols.append(c[sel])
+                    pos.append(p[sel])
+        elif lo.n_coo:
             p = torch.arange(lo.n_dense, lo.n_storage, device=dev)
             sel = slice(None) if keep is None else keep[p]
             rows.append(self.coo_rows[sel])
@@ -534,8 +633,8 @@ class OffsetMatrix:
 
     def to_csr(self) -> torch.Tensor:
         """The entries of ``structural_mask`` as a torch sparse CSR tensor
-        on vals' device: the operand of the library product that the
-        kernel is timed against (no product of the port uses it)."""
+        on vals' device: the operand of the library products that the
+        kernels are timed against (no product of the port uses it)."""
         import warnings
         rows, cols, pos = self._triplets(self.structural_mask())
         order = torch.argsort(rows * self.n + cols, stable=True)

@@ -1,7 +1,6 @@
 """Lattice geometric multigrid, the strong preconditioner of the port.
 
-Port of ``metafem/linsolve/multigrid.py`` (all of it except
-``mg_setup_from_stencil``, which serves the auxiliary-space multigrid).
+Port of ``metafem/linsolve/multigrid.py``.
 With lattice control-point numbering the FEM tangent is a
 variable-coefficient stencil, so every multigrid ingredient is dense
 strided tensor work:
@@ -470,6 +469,30 @@ def mg_setup(hier: MGHierarchy, A: OffsetMatrix,
     if hier.block_smooth and C > 1:
         state[0]["inv_diag_blk"] = _inv_blocks(
             _fine_diag_blocks(A, C, hier.shapes[0]), C)
+    state[0]["omega"] = _calibrate(hier, state, 0, dtype, device,
+                                   None if starts is None else starts[0])
+    return _setup_coarser_levels(hier, state, dtype, device, starts)
+
+
+def mg_setup_from_stencil(hier: MGHierarchy, coefs0: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None,
+                          starts: Optional[Sequence] = None) -> tuple:
+    """Build the V-cycle state when the FINEST level is already a lattice
+    stencil (``coefs0`` [n_off, C, C, *shapes[0]]) rather than an
+    assembled OffsetMatrix: the auxiliary-space path (auxmg.py) seeds
+    the hierarchy with the host Galerkin operator of its lattice.  The
+    state lives on coefs0's device in its dtype; ``mask`` and ``starts``
+    as for mg_setup."""
+    dtype, device = coefs0.dtype, coefs0.device
+    C = hier.channels
+    state: List[dict] = [{"coefs": coefs0}]
+    if mask is not None:
+        state[0]["mask"] = mask.reshape((1,) + hier.shapes[0]).to(dtype)
+    state[0]["inv_diag"] = _floored_inv(
+        _stencil_diag(coefs0, hier.offsets, C))
+    if hier.block_smooth and C > 1:
+        i0 = list(hier.offsets).index((0,) * hier.dim)
+        state[0]["inv_diag_blk"] = _inv_blocks(coefs0[i0], C)
     state[0]["omega"] = _calibrate(hier, state, 0, dtype, device,
                                    None if starts is None else starts[0])
     return _setup_coarser_levels(hier, state, dtype, device, starts)

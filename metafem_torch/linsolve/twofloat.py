@@ -24,7 +24,9 @@ with ``__fadd_rn``/``__fmul_rn``, which nvcc never contracts.
 
 ``df_offset_mv`` runs each dense group through
 ``offset_spmv.group_mv_df``: the hand-written kernel on a CUDA tensor,
-its plain version on a CPU tensor.
+its plain version on a CPU tensor.  A BSR tail (unstructured meshes)
+runs as eager two-float PyTorch ops (``_df_bsr_tail_mv``, the
+reference's formula); it has no kernel yet.
 """
 
 from __future__ import annotations
@@ -242,14 +244,10 @@ def df_offset_mv(vals: DF, layout, x: DF,
     ``offset_spmv.group_mv_df`` (per-unit compensated sums over the
     offsets, in the reference's order), the scalar COO tail as one
     float64 sorted segment sum over the layout's device tables, split
-    back and df_added.  ``packed``: the pair's ``df_pack`` (packed here
-    when None)."""
+    back and df_added, a BSR tail through ``_df_bsr_tail_mv``.
+    ``packed``: the pair's ``df_pack`` (packed here when None)."""
     from . import offset_spmv
     from .block_offset import OffsetMatrix
-    if layout.blk_b:
-        raise NotImplementedError(
-            "two-float products over a BSR tail (blk_b > 0) are not ported "
-            "yet (ROADMAP.md section 1, item 5)")
     A = OffsetMatrix.from_values(vals.hi, layout)
     plans = A.pack_plans(vec=offset_spmv.DF_VEC)
     if packed is None:
@@ -266,7 +264,9 @@ def df_offset_mv(vals: DF, layout, x: DF,
                                 out_hi=y_hi[sl].view(shape),
                                 out_lo=y_lo[sl].view(shape))
     y = DF(y_hi, y_lo)
-    if layout.n_coo:
+    if layout.blk_b:
+        y = df_add(y, _df_bsr_tail_mv(vals, layout, x, A))
+    elif layout.n_coo:
         # the (small) COO tail in float64; lattice meshes have none
         from .block_offset import sorted_segment_sum
         f64 = torch.float64
@@ -276,3 +276,36 @@ def df_offset_mv(vals: DF, layout, x: DF,
         t64 = sorted_segment_sum(cv * xv, A._tail_plan("rows"), layout.n)
         y = df_add(y, df_from_f64(t64))
     return y
+
+
+def _df_bsr_tail_mv(vals: DF, layout, x: DF, A) -> DF:
+    """The BSR tail's two-float product (the reference's BSR branch of
+    ``df_offset_mv``), in plain PyTorch on the tail's component-major
+    [b, b, nb] view: per block and row i the b two-float products of
+    row i summed with df_add in column order, then the blocks of each
+    run summed by the error-free segmented tree (``df_segsum_sorted``)
+    over the sorted block rows, each run's sum read at its start, and
+    the run sums written to their block rows through float64 and split
+    back.  ``A``: an OffsetMatrix of ``layout`` on x's device (its
+    device tables)."""
+    from .block_offset import tail_runs
+    b, nb, nbr = layout.blk_b, layout.n_coo, layout.n_block_rows
+    t = A._tables()
+    Bh = vals.hi[layout.n_dense:].view(b, b, nb)
+    Bl = vals.lo[layout.n_dense:].view(b, b, nb)
+    xg_hi = A._blocked(x.hi)[A.coo_cols].t()                # [b, nb]
+    xg_lo = A._blocked(x.lo)[A.coo_cols].t()
+    z = torch.zeros((b, nb), dtype=x.hi.dtype, device=x.hi.device)
+    acc = DF(z, z)
+    for j in range(b):
+        p, e = two_prod(Bh[:, j, :], xg_hi[j][None, :])
+        e = e + ((Bh[:, j, :] * xg_lo[j][None, :])
+                 + (Bl[:, j, :] * xg_hi[j][None, :]))
+        acc = df_add(acc, DF(p, e))
+    acc = df_segsum_sorted(acc, A.coo_rows, tail_runs(layout)[2])
+    starts = t["run_start"][:-1]
+    f64 = torch.float64
+    runs = acc.hi[:, starts].to(f64) + acc.lo[:, starts].to(f64)
+    t64 = torch.zeros((nbr, b), dtype=f64, device=x.hi.device)
+    t64[t["run_row"]] = runs.t()
+    return df_from_f64(t64.reshape(-1)[:layout.n])

@@ -58,13 +58,23 @@ fields and global constants):
     dom2.load_freezes("fz.pkl")            # a fresh identical domain
     dom2.free_volume_tables()              # affine volume: tables unused
 
-Not ported yet: the auxiliary-space multigrid.
+Unstructured meshes (no lattice numbering) spill their rare offsets
+into a BSR tail of 8 x 8 blocks and precondition with the
+auxiliary-space multigrid (the pikachu-class production path):
+
+    dom.freeze_linear_tangent()            # on the host for these meshes
+    dom.freeze_refined_residual()
+    dom.setup_auxmg(smooth="full")
+    dom.free_volume_tables()
+    step = dom.make_refined_step(sv_func=krylov.bicgstab, precond="auxmg",
+                                 maxiter=12, max_refine=4, forcing=0.3)
 """
 
 from __future__ import annotations
 
 import dataclasses
 import pickle
+import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -74,7 +84,7 @@ from ..config import DEFAULT_DTYPE, device_constant, resolve_device
 from ..elements.discretization import (ClassicalDiscretization,
                                        initialize_classical_element)
 from ..linsolve import krylov, multigrid
-from ..linsolve.block_offset import OffsetMatrix
+from ..linsolve.block_offset import OffsetMatrix, _device_tables
 from ..linsolve.driver import iterative_solve, solver_lu
 from ..mesh.fem_mesh import WPMesh, build_wp_mesh
 from ..mesh.ref_geometry import GeoMesh
@@ -210,6 +220,12 @@ class FEM_Domain:
         self._mg_mask: Optional[torch.Tensor] = None
         self._mg_spectrum: Optional[Tuple[float, float]] = None
         self._mg_cheb = None
+        # the auxiliary-space multigrid (setup_auxmg): (tree, (desc,
+        # hier)), its preconditioned spectrum and Chebyshev enclosure
+        self._auxmg: Optional[tuple] = None
+        self._auxmg_spectrum: Optional[Tuple[float, float]] = None
+        self._auxmg_cheb = None
+        self._auxmg_timings: dict = {}   # seconds per part of setup_auxmg
         self._jit_step = None
         # the host float64 caches shared by the one-time freezes, the
         # CPU copies of the reduction maps they run with, and whether
@@ -344,7 +360,8 @@ class FEM_Domain:
 
     def assemble_global_variables(self, **layout_opts) -> None:
         """``layout_opts`` forward to block_offset.build_offset_layout
-        (e.g. dense_min_n)."""
+        (e.g. dense_min_n, or blk_b / blk_min_tail for the BSR tail of
+        unstructured meshes)."""
         meshes = [wp.mesh for wp in self.workpieces]
         assemblies = [wp.local_assembly for wp in self.workpieces]
         self.pattern = build_global_pattern(meshes, assemblies,
@@ -359,10 +376,6 @@ class FEM_Domain:
         rest, the ghost-row regularizer, then the geometry tables."""
         if self.pattern is None:
             self.assemble_global_variables()
-        if self.pattern.offset_layout.blk_b:
-            raise NotImplementedError(
-                "meshes whose block-offset layout needs a BSR tail are not "
-                "ported yet (ROADMAP.md section 1, item 5)")
         self._compiled_wps = [
             CompiledWP(disc=wp.disc, la=wp.local_assembly,
                        info=self.pattern.wp_infos[i],
@@ -511,15 +524,28 @@ class FEM_Domain:
         """The reference's iterative_Solve! behavior: right-Jacobi scaled
         Krylov (02_Preconditioner.jl:30-78), BiCGStab by default.  Each
         pass's (iterations, true residual) lands in ``self.solve_log``.
-        ``precond='auxmg'`` (auxiliary-space multigrid) is not ported
-        yet."""
+        ``precond='auxmg'``: auxiliary-space multigrid (auxmg.py) as the
+        right preconditioner; call ``setup_auxmg()`` first.  The frozen
+        aux hierarchy is combined with each tangent's values and
+        diagonal (``auxmg.refresh_tangent``)."""
         sv_func = sv_func or krylov.bicgstab
         kwargs.setdefault("maxiter", 2000)
         kwargs.setdefault("max_pass", 10)
         if precond == "auxmg":
-            raise NotImplementedError(
-                "precond='auxmg' (auxiliary-space multigrid) is not ported "
-                "yet (ROADMAP.md section 1, item 5)")
+            from ..linsolve import auxmg
+
+            def solve_aux(A, b):
+                if self._auxmg is None:
+                    raise RuntimeError("call domain.setup_auxmg() first")
+                tree, (desc, hier) = self._auxmg
+                op = auxmg.AuxMGOperator(
+                    A, auxmg.refresh_tangent(A, tree, desc), hier, desc)
+                y = iterative_solve(op, b, None,
+                                    converge_tol=self.converge_tol,
+                                    sv_func=sv_func, use_pr_jacobi=False,
+                                    log=self.solve_log, **kwargs)
+                return op.apply_m(y)
+            return solve_aux
         if precond is not None:
             raise ValueError(f"unknown precond {precond!r}")
 
@@ -683,12 +709,26 @@ class FEM_Domain:
         st = self._host_phase_state("nl")
         return K_lin + self._run_phase(st, "nl")[1].numpy()
 
+    def _coo_dev(self) -> tuple:
+        """The tail's row and column ids (block ids under a BSR tail) on
+        the domain's device, from the layout's device tables; (None,
+        None) when the layout has no tail (lattice meshes)."""
+        lo = self.pattern.offset_layout
+        if not lo.n_coo:
+            return None, None
+        t = _device_tables(lo, self.device)
+        return t["coo_rows"], t["coo_cols"]
+
     def _runtime_state(self) -> dict:
         ga = self.time_discretization
+        coo_rows, coo_cols = self._coo_dev()
         return {**self.state,
+                "coo_rows": coo_rows, "coo_cols": coo_cols,
                 "ghost_diag": self._ghost_diag,
                 "mg_mask": self._mg_mask,
                 "mg_frozen": self._mg_frozen,
+                "auxmg_tree": (self._auxmg[0] if self._auxmg is not None
+                               else None),
                 "K_linear_td": self._k_linear_td,
                 "refined": self._refined,
                 "maps": self._device_maps,
@@ -784,7 +824,11 @@ class FEM_Domain:
         b is made at the first two-float step and kept here.
 
         Same validity contract as freeze_linear_tangent."""
-        self._ensure_device_maps("aff_lin", "aff_res", "nonaff_nl")
+        host = self._host_lin_td64_cache
+        from_host = host is not None and self._all_forms_affine()
+        # the 'aff_lin' maps only when A_td is assembled here
+        self._ensure_device_maps(*(() if from_host else ("aff_lin",)),
+                                 "aff_res", "nonaff_nl")
         f64 = torch.float64
         L = self.pattern.max_time_level
         wp64 = self._f64_tables()
@@ -795,8 +839,7 @@ class FEM_Domain:
               "global_vars": {k: float(v)
                               for k, v in self.global_vars.items()},
               "user": self.user_state}
-        host = self._host_lin_td64_cache
-        if host is not None and self._all_forms_affine():
+        if from_host:
             # aff_lin == lin: each host component holds the ghost
             # regularizer once, which the refined operator excludes
             ghost = self._ghost_diag
@@ -906,12 +949,33 @@ class FEM_Domain:
         self._mg_cheb = multigrid.tune_chebyshev(op, n, self.dtype,
                                                  self._mg_spectrum)
 
+    def setup_auxmg(self, **opts) -> None:
+        """Freeze the auxiliary-space multigrid preconditioner (for
+        unstructured meshes: the counterpart of setup_mg) from the
+        tangent at the current x, assembled on the CPU in float64
+        (``_host_tangent``: the Galerkin build consumes it on the host,
+        and the volume gather maps never need the card).  Consumed by
+        ``make_iterative_solver(precond='auxmg')`` and
+        ``make_refined_step(precond='auxmg')``; valid while that tangent
+        stays representative (linear problems: exact).  ``opts`` forward
+        to auxmg.setup (smooth, h, radius, nu1, nu2, n_power, starts,
+        verbose).  The seconds of each part land in ``_auxmg_timings``:
+        "host_tangent" and those of auxmg.setup."""
+        from ..linsolve import auxmg
+        ga = self.time_discretization
+        ga.update_time(self.dt or 1.0, self.pattern.max_time_level)
+        t0 = time.perf_counter()
+        K = self._host_tangent()
+        host_s = time.perf_counter() - t0
+        self._auxmg = auxmg.setup(self, K, **opts)
+        self._auxmg_timings = {"host_tangent": host_s,
+                               **self._auxmg_timings}
+
     # ------------------------------------------------------------------
     # freeze persistence: repeated runs of one problem reload the
     # freezes instead of computing them
     # ------------------------------------------------------------------
-    #: the freezes save_freezes writes; the auxiliary-space multigrid's
-    #: three are None until that preconditioner is ported (skipped)
+    #: the freezes save_freezes writes
     _FREEZE_ATTRS = ("_k_linear_td", "_refined", "_auxmg", "_auxmg_cheb",
                      "_auxmg_spectrum", "_mg_frozen", "_mg_hier",
                      "_mg_cheb", "_mg_spectrum")

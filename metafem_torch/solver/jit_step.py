@@ -203,8 +203,14 @@ def make_refined_step(domain, sv_func: Callable = krylov.bicgstab,
     2. the tangent = frozen linear part (``freeze_linear_tangent``) +
        the per-iteration nonaffine gradient blocks;
     3. a working-precision solve, multigrid right-preconditioned
-       (``setup_mg``) or right-Jacobi scaled, with inexact-Newton
-       forcing.
+       (``precond="mg"``: ``setup_mg``; ``precond="auxmg"``, unstructured
+       meshes: ``setup_auxmg``) or right-Jacobi scaled, with
+       inexact-Newton forcing.
+
+    ``inner_operator="sparse"`` (with ``setup_auxmg(smooth="sparse")``)
+    runs the inner Krylov iteration on the sparsified tangent
+    (``auxmg.SparseInnerOp``), so no inner iteration touches the BSR
+    tail.
 
     The loop stops below ``domain.converge_tol``, after ``max_refine``
     iterations, or when the residual falls by less than ``stall_ratio``.
@@ -234,25 +240,31 @@ def make_refined_step(domain, sv_func: Callable = krylov.bicgstab,
         raise NotImplementedError(
             "rowshard_mesh (multi-device row sharding) is not ported yet "
             "(ROADMAP.md section 1, item 6)")
-    if inner_operator == "sparse":
-        raise NotImplementedError(
-            "inner_operator='sparse' needs the auxiliary-space multigrid, "
-            "not ported yet (ROADMAP.md section 1, item 5)")
-    if inner_operator != "exact":
-        raise ValueError(f"unknown inner_operator {inner_operator!r}")
-    if precond == "auxmg":
-        raise NotImplementedError(
-            "precond='auxmg' is not ported yet (ROADMAP.md section 1, "
-            "item 5)")
     mg_hier = None
+    aux_static = None
     if precond == "mg":
         from ..linsolve import multigrid
         if domain._mg_frozen is None:
             raise RuntimeError("call domain.setup_mg() first")
         # the hierarchy the frozen state was built for
         mg_hier = domain._mg_hier or multigrid.hierarchy_for_domain(domain)
+    elif precond == "auxmg":
+        # unstructured meshes: the frozen auxiliary-space hierarchy, its
+        # fine Jacobi diagonal refreshed per tangent
+        from ..linsolve import auxmg
+        if domain._auxmg is None:
+            raise RuntimeError("call domain.setup_auxmg() first")
+        aux_static = domain._auxmg[1]           # (desc, hier)
     elif precond != "jacobi":
         raise ValueError(f"unknown precond {precond!r}")
+    if inner_operator not in ("exact", "sparse"):
+        raise ValueError(f"unknown inner_operator {inner_operator!r}")
+    if inner_operator == "sparse" and (aux_static is None
+                                       or aux_static[0].smooth != "sparse"):
+        raise ValueError(
+            "inner_operator='sparse' needs precond='auxmg' with "
+            "setup_auxmg(smooth='sparse'): the sparsified tangent is the "
+            "aux smoother's operator")
 
     domain._ensure_device_maps(*(("nonaff_nl",) if residual_mode == "f64"
                                  else ("nonaff_res", "nl_grad")))
@@ -273,24 +285,37 @@ def make_refined_step(domain, sv_func: Callable = krylov.bicgstab,
 
     if sv_func is krylov.chebyshev:
         # static trip count and enclosure from the MEASURED rate of the
-        # preconditioned operator (setup_mg's tune); the outer loop
-        # measures true residuals, so a drifting bound only slows it
-        if precond != "mg":
-            raise ValueError("chebyshev inner solves need the multigrid "
-                             "preconditioner (precond='mg')")
-        if domain._mg_cheb is None:
+        # preconditioned operator (setup_mg's or setup_auxmg's tune); the
+        # outer loop measures true residuals, so a drifting bound only
+        # slows it
+        if precond not in ("mg", "auxmg"):
+            raise ValueError("chebyshev inner solves need a multigrid "
+                             "preconditioner (precond='mg'/'auxmg')")
+        tuned = domain._mg_cheb if precond == "mg" else domain._auxmg_cheb
+        if tuned is None:
             raise RuntimeError(
                 "chebyshev inner solves need the tuned enclosure from "
-                "setup_mg() — None there means Chebyshev can't contract "
-                "this operator; use a Krylov sv_func")
-        interval, rate = domain._mg_cheb
+                "setup_mg()/setup_auxmg() — None there means Chebyshev "
+                "can't contract this operator; use a Krylov sv_func")
+        interval, rate = tuned
         n_cheb = int(np.ceil(np.log(forcing / 2.0) / np.log(rate)))
         maxiter = int(np.clip(n_cheb, 2, maxiter))
         sv_kwargs = {**sv_kwargs, "interval": interval}
 
     def solve_f32(state, A, rr, tol_i):
-        if mg_hier is not None:
-            op = multigrid.MGOperator(A, state["mg_frozen"], mg_hier)
+        if mg_hier is not None or aux_static is not None:
+            if mg_hier is not None:
+                op = multigrid.MGOperator(A, state["mg_frozen"], mg_hier)
+            else:
+                desc, hier = aux_static
+                op = auxmg.AuxMGOperator(
+                    A, auxmg.refresh_tangent(A, state["auxmg_tree"], desc),
+                    hier, desc)
+                if inner_operator == "sparse":
+                    # tail-free inner iteration on the sparsified tangent;
+                    # the outer loop's true residual absorbs the
+                    # sparsification error as extra refines
+                    op = auxmg.SparseInnerOp(op)
             r0, delta = rr, None
             for p in range(max_pass):
                 y_i, _, _ = sv_func(op, rr, tol=tol_i, maxiter=maxiter,

@@ -239,8 +239,13 @@ def test_direct_solver_step_matches_reference():
 
 
 def test_unported_options_raise():
+    """rowshard_mesh is not ported (it names its ROADMAP item); the
+    auxiliary-space solver is ported and refuses to solve before
+    setup_auxmg."""
     dom, _ = _port_thermal()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         dom.make_jitted_step(rowshard_mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dom.make_iterative_solver(precond="auxmg")
+    solve = dom.make_iterative_solver(precond="auxmg")
+    A, residue = dom.assemble_tangent()
+    with pytest.raises(RuntimeError, match="setup_auxmg"):
+        solve(A, residue)

@@ -60,7 +60,8 @@ def test_slice_runs_with_jax_and_reference_blocked(tmp_path):
     and the multi-field examples imported, J2's return map run, one
     two-float (df32) refined step of the small flagship, and, with the io
     and utils packages imported, a save and load of its freezes, a
-    checkpoint round trip, a VTK file and the memory report: lazy
+    checkpoint round trip, a VTK file and the memory report, and the
+    unstructured example (BSR tail, auxmg, refined step) small: lazy
     imports inside functions are caught too."""
     code = (
         "import sys\n"
@@ -133,7 +134,10 @@ def test_slice_runs_with_jax_and_reference_blocked(tmp_path):
         "                           w.disc.element_type)\n"
         "rep = metafem_torch.utils.memory_report(dom2)\n"
         "assert rep['TOTAL (MB)'] > 0, rep\n"
-        "print('PERSIST-OK')\n")
+        "print('PERSIST-OK')\n"
+        "from metafem_torch.examples import pikachu_brick\n"
+        "pikachu_brick.main(['--cpu', '--nel', '4', '3', '3'])\n"
+        "print('UNSTRUCTURED-OK')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=300, env=env, cwd=REPO)
@@ -143,6 +147,7 @@ def test_slice_runs_with_jax_and_reference_blocked(tmp_path):
     assert "MENU-OK" in proc.stdout
     assert "DF32-OK" in proc.stdout
     assert "PERSIST-OK" in proc.stdout
+    assert "UNSTRUCTURED-OK" in proc.stdout
 
 
 def test_default_device_is_cuda_and_raises_without_it(monkeypatch):

@@ -263,11 +263,16 @@ def test_float32_domain_step_matches_reference():
 
 
 def test_unported_options_raise():
+    """rowshard_mesh is not ported (it names its ROADMAP item); the
+    auxiliary-space options are ported and refuse a domain without
+    setup_auxmg (a lattice one here)."""
     _, dom = _frozen_pair(False)
-    for kw in ({"precond": "auxmg"}, {"inner_operator": "sparse"},
-               {"rowshard_mesh": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            dom.make_refined_step(**{"precond": "jacobi", **kw})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        dom.make_refined_step(precond="jacobi", rowshard_mesh=object())
+    with pytest.raises(RuntimeError, match="setup_auxmg"):
+        dom.make_refined_step(precond="auxmg")
+    with pytest.raises(ValueError, match="smooth='sparse'"):
+        dom.make_refined_step(precond="jacobi", inner_operator="sparse")
 
 
 # ---------------------------------------------------------------------------
