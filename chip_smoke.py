@@ -7,9 +7,8 @@ from the root of the repository.  Phases, one line or more each:
 
 1. environment: torch and CUDA versions, the card's name and power limit;
 2. build: the three kernel sources compiled with nvcc, in parallel (the
-   SpMV's holds its float64, float32 and two-float entry points; the
-   BSR tail's its float64 and float32 ones), and ptxas's report of their
-   registers and spills;
+   SpMV's and the BSR tail's each hold float64, float32 and two-float
+   entry points), and ptxas's report of their registers and spills;
 3. kernel parity: the packed block-offset SpMV against its plain
    PyTorch version and the dense formula on the README thermal operator
    (f64, f32) and a C=2 elastic one, with times from CUDA events (back
@@ -76,25 +75,43 @@ from the root of the repository.  Phases, one line or more each:
    the card;
 10. the unstructured path (``phase_unstructured``): pikachu's weak form
     on a jittered order-2 tet brick at nel=(73,51,51) (1,369,650 DOF,
-    f32 domain, f64 residuals; ``examples/pikachu_brick.py``) through
+    f32 domain; ``examples/pikachu_brick.py``) through
     ``benchmarks/pikachu_scale.py``'s production path: each one-time
     phase's seconds (the host freezes, ``setup_auxmg`` by part); the
-    BSR-tail kernel on the f32 tangent and the f64 A_td against its
-    plain version (bitwise repeats), timed back to back and with L2
-    flushed beside its bytes bound, CSR ``torch.mv`` over the tail's
-    structural entries and ``torch.sparse_bsr_tensor``; 3 timed refined
-    steps (auxmg, BiCGStab) below 1e-6 with the launches of both kernels
-    per step and the device-busy time, a bitwise repeat; the sparse
-    smoother with the exact inner operator (its root against the full
-    smoother's) and with the sparsified one (reported); one
-    ``update_one_step`` with ``make_iterative_solver(precond="auxmg")``,
-    its T within 1e-5 of the refined root;
+    packed BSR-tail kernel (one thread per row over the tail plan of its
+    structural entries) on the f32 tangent and the f64 A_td against its
+    plain version and the BSR storage's product (bitwise repeats), timed
+    back to back and with L2 flushed beside three bounds (structural
+    entries, the plan's bytes, the whole BSR storage), CSR ``torch.mv``
+    over the tail's structural entries and ``torch.sparse_bsr_tensor``,
+    with the plan's build time, padding and pack; the packed kernel on
+    each tailless view; the whole product ``A.mv`` (dense group and
+    tail) against CSR ``torch.mv`` over all its structural entries, f32
+    and f64; 3 timed refined steps with f64 residuals (auxmg, BiCGStab)
+    below 1e-6 with the launches of both kernels per step and the
+    device-busy time, a bitwise repeat; the same step in the
+    reference's own df32 residual mode (``residual_mode="df32"``, x as
+    a DF pair): the pair split of the freeze, a converge from cold, 3
+    timed warm steps below 1e-6 with every kernel's launches per step,
+    the device-busy time and the two-float tail kernel's share, a
+    bitwise repeat, its T within 1e-5 of the f64 step's root; the
+    two-float tail kernel on that A_td, bitwise equal to its plain
+    version and within 1e-12 of the f64 tail kernel, timed beside the
+    f64 tail kernel, CSR f64 and its bounds; the two-float dense-group
+    kernel on the same A_td's dense group (one C=1 group of 59 offsets,
+    Morton numbering) within 2^-45 |A||x| per row of its plain version
+    and of the f64 packed kernel, timed beside them and CSR f64; the
+    sparse smoother with
+    the exact inner operator (its root against the full smoother's) and
+    with the sparsified one (reported); one ``update_one_step`` with
+    ``make_iterative_solver(precond="auxmg")``, its T within 1e-5 of
+    the refined root;
 11. the ``kernels`` JSON line, then the device JSON line last.
 
 Each path (gather probe, README step, flagship, the df32 flagship, the
 warm-started flagship, each 3D load step, each thermo-elastic step and
 the resumed ones, each cavity Reynolds number, the df32 cavity, the
-unstructured steps) runs
+unstructured steps and their df32 twin) runs
 with the kernels' launch counts set to 0 just before it and read just
 after; every path must have launched its kernel.  Every failure raises
 and exits non-zero.
@@ -223,9 +240,9 @@ def phase_build() -> float:
     bsr_tail.load_library()
     sec = time.perf_counter() - t0
     flags = " ".join(buildlib.NVCC_FLAGS)
-    print(f"[build] offset_spmv.cu (float64, float32 and two-float "
-          f"entry points), gather_probe.cu and bsr_tail.cu (float64 and "
-          f"float32) with nvcc {flags}: {sec:.2f} s")
+    print(f"[build] offset_spmv.cu and bsr_tail.cu (float64, float32 and "
+          f"two-float entry points each) and gather_probe.cu with nvcc "
+          f"{flags}: {sec:.2f} s")
     for lib in libs:
         for line in buildlib.build_log(lib).splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
@@ -401,10 +418,12 @@ def _df_ops_check(device, n: int = 1 << 20) -> float:
 
 def _df_spmv(ref: dict, layout, rng, device, label: str, tag: str) -> dict:
     """The two-float SpMV kernel on each time level of the frozen pair
-    (``ref`` after a df32 step: A_hi/A_lo and their packed pairs) at a
-    random x pair, held row by row within DF_SPMV_BOUND * (|A||x|)_row
-    of its plain version (both on the card) and of the float64 packed
-    kernel on (hi + lo), and launched twice to the same bits; then the
+    (``ref`` after a df32 step: A_hi/A_lo and their packed pairs, the
+    dense group's first) at a random x pair, held row by row within
+    DF_SPMV_BOUND * (|A||x|)_row of its plain version (both on the card)
+    and of the float64 packed kernel on (hi + lo), over the dense group
+    alone (``dense_part``: a BSR tail has kernels of its own), and
+    launched twice to the same bits; then the
     first level's kernel timed (CUDA graph replay, and with L2 flushed)
     beside its plain version, the float64 kernel and CSR ``torch.mv`` in
     float64 on the same entries, and the bound: the structural entries'
@@ -416,8 +435,10 @@ def _df_spmv(ref: dict, layout, rng, device, label: str, tag: str) -> dict:
     from metafem_torch.linsolve.block_offset import OffsetMatrix
     (grp,) = layout.pallas_groups
     C, n_cp = grp.n_vars, grp.n_cp
-    (plan,) = OffsetMatrix.from_values(ref["A_hi"][0], layout).pack_plans(
-        vec=offset_spmv.DF_VEC)
+
+    def dense(vals):
+        return OffsetMatrix.from_values(vals, layout).dense_part()
+    (plan,) = dense(ref["A_hi"][0]).pack_plans(vec=offset_spmv.DF_VEC)
     x = tf.df_from_f64(torch.as_tensor(
         rng.standard_normal(layout.n) * (1.0 + rng.random(layout.n)),
         device=device))
@@ -425,7 +446,7 @@ def _df_spmv(ref: dict, layout, rng, device, label: str, tag: str) -> dict:
     x64 = tf.df_to_f64(x)
     worst_plain, worst_f64, max_abs = 0.0, 0.0, 0.0
     for td in range(ref["A_hi"].shape[0]):
-        (packed,) = ref["A_packed"][td]
+        packed = ref["A_packed"][td][0]
         a = tf.DF(ref["A_hi"][td], ref["A_lo"][td])
         y = offset_spmv.group_mv_df(packed, xw.hi, xw.lo, plan)
         y2 = offset_spmv.group_mv_df(packed, xw.hi, xw.lo, plan)
@@ -438,9 +459,9 @@ def _df_spmv(ref: dict, layout, rng, device, label: str, tag: str) -> dict:
             packed, xw.hi, xw.lo, plan, torch.empty_like(y[0]),
             torch.empty_like(y[1]))
         plan.columns = None
-        A64 = OffsetMatrix.from_values(tf.df_to_f64(a), layout)
+        A64 = dense(tf.df_to_f64(a))
         y64 = A64.mv(x64)
-        ax = OffsetMatrix.from_values(A64.vals.abs(), layout).mv(x64.abs())
+        ax = dense(A64.vals.abs()).mv(x64.abs())
         bound = DF_SPMV_BOUND * ax.clamp(min=1e-300)
         d_plain = (yk - tf.df_to_f64(tf.DF(*plain)).view(-1)).abs()
         d_f64 = (yk - y64).abs()
@@ -452,7 +473,7 @@ def _df_spmv(ref: dict, layout, rng, device, label: str, tag: str) -> dict:
         raise AssertionError(f"two-float SpMV on {label}: off by "
                              f"{worst_plain} (plain), {worst_f64} (f64 "
                              f"kernel) of 2^-45 |A||x|")
-    (packed,) = ref["A_packed"][0]
+    packed = ref["A_packed"][0][0]
     out = (torch.empty_like(xw.hi), torch.empty_like(xw.lo))
 
     def kernel():
@@ -463,8 +484,7 @@ def _df_spmv(ref: dict, layout, rng, device, label: str, tag: str) -> dict:
     plain_ms = _time_ms(lambda: offset_spmv.group_mv_df_plain(
         packed, xw.hi, xw.lo, plan, *out), reps=5, warmup=1)
     plan.columns = None
-    A64 = OffsetMatrix.from_values(tf.df_to_f64(
-        tf.DF(ref["A_hi"][0], ref["A_lo"][0])), layout)
+    A64 = dense(tf.df_to_f64(tf.DF(ref["A_hi"][0], ref["A_lo"][0])))
     (plan64,) = A64.pack_plans()
     packed64 = A64.packed(0)
     xw64 = x64.view(C, n_cp)
@@ -808,6 +828,17 @@ def _kernel_profile(fn, device) -> tuple:
         count += 1
         times[name] = times.get(name, 0.0) + ev.time_range.elapsed_us() / 1e3
     return (count or None), times
+
+
+def _top_kernels(kernels: dict, k: int = 6) -> str:
+    """The ``k`` kernels of a ``_kernel_profile`` that took the most
+    device time, as "name ms" (names cut to their function)."""
+    def short(name):
+        name = name.replace("(anonymous namespace)::", "")
+        name = name.removeprefix("void ").split("(")[0]
+        return name.split("<")[0].split("::")[-1][:48]
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:k]
+    return ", ".join(f"{short(n)} {v:.2f} ms" for n, v in top)
 
 
 class _Parts:
@@ -1881,124 +1912,308 @@ def _j2_path(device, e_number) -> dict:
 # the unstructured path: BSR tail, auxiliary-space multigrid, pikachu step
 # ---------------------------------------------------------------------------
 
-def _bsr_numbers(A, rng, device, label) -> dict:
-    """The BSR-tail kernel on A's tail (its own float type) against its
-    plain version on the card (max relative error, a bitwise repeat),
-    timed with CUDA events back to back (``ms``) and with L2 flushed
-    (``cold_ms``), beside the plain version, CSR ``torch.mv`` over the
-    tail's structural entries (``library_ms``) and, where PyTorch runs
-    it, ``torch.sparse_bsr_tensor``'s product over the same blocks.
-    ``bound_ms`` counts what the product needs, as ``_spmv_numbers``
-    does: the values of the tail's structural entries, x read once and
-    y written once, two operations per entry.  ``storage_bound_ms``
-    counts what the BSR storage makes the kernel move: the 64 nb stored
-    values (93% of them zeros on the brick), the nb column ids and the
-    run tables once, each distinct x block once, and the touched y rows
-    read and written once (the kernel adds into y)."""
+def _tail_csr(A):
+    """CSR of A's BSR-tail structural entries on vals' device: the
+    library product that the tail kernels are timed against."""
+    import warnings
+    lo = A.layout
+    keep = A.structural_mask()
+    keep[:lo.n_dense] = False
+    rows, cols, pos = A._triplets(keep)
+    del keep
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # "beta state"
+        return torch.sparse_coo_tensor(
+            torch.stack([rows, cols]), A.vals[pos], (lo.n, lo.n),
+            check_invariants=False).coalesce().to_sparse_csr()
+
+
+def _bsr_library(A, x, y_ref, scale, tol, device) -> tuple:
+    """``torch.sparse_bsr_tensor``'s product over A's tail blocks: its
+    time (None where PyTorch does not run it) and what happened."""
+    import warnings
+    lo = A.layout
+    b, nb, n = lo.blk_b, lo.n_coo, lo.n
+    try:
+        crow = torch.searchsorted(A.coo_rows, torch.arange(
+            lo.n_block_rows + 1, device=device))
+        blocks = A.vals[lo.n_dense:].view(b, b, nb).permute(
+            2, 0, 1).contiguous()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            Ab = torch.sparse_bsr_tensor(
+                crow, A.coo_cols, blocks, size=(lo.n_block_rows * b,) * 2)
+        xp = torch.zeros(lo.n_block_rows * b, dtype=x.dtype, device=device)
+        xp[:n] = x
+        b_err = float((torch.mv(Ab, xp)[:n] - y_ref).abs().max()) / scale
+        if not b_err <= tol:
+            raise AssertionError(f"torch.sparse_bsr_tensor product of the "
+                                 f"tail disagrees: {b_err}")
+        return _time_ms(lambda: torch.mv(Ab, xp)), "ran"
+    except (RuntimeError, NotImplementedError, TypeError) as e:
+        return None, f"did not run: {str(e).splitlines()[0][:160]}"
+
+
+def _tail_storage_bound_ms(A, rate, peak) -> float:
+    """What the BSR storage made the kernel of earlier versions move: the
+    64 nb stored values (93% of them zeros on the brick), the nb column
+    ids and the run tables once, each distinct x block once, and the
+    touched y rows read and written once."""
+    lo = A.layout
+    b, nb = lo.blk_b, lo.n_coo
+    isz = A.vals.element_size()
+    n_runs = A._tables()["run_row"].numel()
+    x_blocks = int(torch.unique(A.coo_cols).numel())
+    return 1e3 * max(
+        (b * b * nb * isz + nb * 8 + (2 * n_runs + 1) * 8
+         + 2 * n_runs * b * isz + x_blocks * b * isz) / rate,
+        2 * b * b * nb / peak)
+
+
+def _far_share(plan) -> float:
+    """Share of the tail plan's entries whose column lies 2^15 or more
+    from their row: those a 16-bit column delta could not reach."""
     from metafem_torch.linsolve import bsr_tail
+    q = bsr_tail.slot_rows(plan.ptr, plan.vec)
+    far = (plan.cols.long() - plan.rows.long()[q]).abs() >= 2 ** 15
+    far[plan.pad] = False
+    return int(far.sum()) / plan.n_entries
+
+
+def _bsr_numbers(A, rng, device, label) -> dict:
+    """The packed BSR-tail kernel on A's tail (its own float type) against
+    its plain version on the same plan and against the BSR storage's
+    product (``bsr_tail_mv_plain``), both on the card (max error relative
+    to max|y|, a bitwise repeat), timed over replays of a CUDA graph of
+    back-to-back launches (``ms``) and with L2 flushed (``cold_ms``),
+    beside the plain version, CSR ``torch.mv`` over the tail's structural
+    entries (``library_ms``) and, where PyTorch runs it,
+    ``torch.sparse_bsr_tensor``'s product over the tail's blocks.
+    ``bound_ms`` counts what the product needs, as ``_spmv_numbers``
+    does: the values of the tail's structural entries, x read once and y
+    written once, two operations per entry.  ``packed_bound_ms`` counts
+    what the tail plan makes the kernel move
+    (``TailPlan.bytes_per_product``: the packed values with their
+    padding and their column ids, the row ids, x once, the touched rows
+    of y read and written).  ``storage_bound_ms``: the whole BSR storage
+    (``_tail_storage_bound_ms``).  The one-time costs: the plan's build
+    (host clock, once per layout, device and float width) and the pack
+    (CUDA events, once per matrix)."""
+    from metafem_torch.linsolve import bsr_tail, offset_spmv
     lo = A.layout
     dtype = A.vals.dtype
     b, nb, n = lo.blk_b, lo.n_coo, lo.n
     t = A._tables()
     tail = A.vals[lo.n_dense:]
-    cols, rs, rr = A.coo_cols, t["run_start"], t["run_row"]
+    plan = A.tail_plan()
+    packed = A.packed_tail()
+    pack_ms = _time_ms(lambda: offset_spmv.pack(tail, plan), reps=5,
+                       warmup=1)
     x = torch.as_tensor(rng.standard_normal(n), dtype=dtype, device=device)
 
     def fresh():
         return torch.zeros(n, dtype=dtype, device=device)
-    y1 = bsr_tail.tail_mv(tail, x, fresh(), cols, rs, rr, b)
-    y2 = bsr_tail.tail_mv(tail, x, fresh(), cols, rs, rr, b)
+    y1 = bsr_tail.tail_mv(packed, x, fresh(), plan)
+    y2 = bsr_tail.tail_mv(packed, x, fresh(), plan)
     _sync(device)
     bitwise = bool(torch.equal(y1, y2))
-    yp = bsr_tail.bsr_tail_mv_plain(tail, x, fresh(), cols, rs, rr, b)
+    yp = bsr_tail.tail_mv_packed_plain(packed, x, fresh(), plan)
+    ys = bsr_tail.bsr_tail_mv_plain(tail, x, fresh(), A.coo_cols,
+                                    t["run_start"], t["run_row"], b)
+    scale = float(ys.abs().max())
     err = float((y1 - yp).abs().max())
-    rel = err / float(yp.abs().max())
+    rel = err / scale
+    rel_storage = float((y1 - ys).abs().max()) / scale
+    del yp, y2
     y = fresh()
 
     def kernel():
-        bsr_tail.tail_mv(tail, x, y, cols, rs, rr, b)
-    ms = _time_ms(kernel)
+        bsr_tail.tail_mv(packed, x, y, plan)
+    ms = _time_ms(kernel, graph=True)
     cold_ms = _time_cold_ms(kernel, device)
-    plain_ms = _time_ms(lambda: bsr_tail.bsr_tail_mv_plain(
-        tail, x, y, cols, rs, rr, b), reps=5, warmup=1)
-    keep = A.structural_mask()
-    keep[:lo.n_dense] = False
-    rows, cols_e, pos = A._triplets(keep)
-    del keep
-    nnz = pos.numel()
-    import warnings
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", UserWarning)  # "beta state"
-        csr = torch.sparse_coo_tensor(
-            torch.stack([rows, cols_e]), A.vals[pos], (n, n),
-            check_invariants=False).coalesce().to_sparse_csr()
-    del rows, cols_e, pos
-    lib_err = float((torch.mv(csr, x) - y1).abs().max()) / float(
-        yp.abs().max())
+    plain_ms = _time_ms(lambda: bsr_tail.tail_mv_packed_plain(
+        packed, x, y, plan), reps=5, warmup=1)
+    csr = _tail_csr(A)
+    nnz = csr.values().numel()
+    lib_err = float((torch.mv(csr, x) - ys).abs().max()) / scale
     tol = 1e-12 if dtype == torch.float64 else 1e-5
     if not lib_err <= tol:
         raise AssertionError(f"CSR yardstick of the tail disagrees: "
                              f"{lib_err}")
     library_ms = _time_ms(lambda: torch.mv(csr, x))
     del csr
-    bsr_ms, bsr_note = None, "ran"
-    try:
-        crow = torch.searchsorted(A.coo_rows, torch.arange(
-            lo.n_block_rows + 1, device=device))
-        blocks = tail.view(b, b, nb).permute(2, 0, 1).contiguous()
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore", UserWarning)
-            Ab = torch.sparse_bsr_tensor(
-                crow, cols, blocks, size=(lo.n_block_rows * b,) * 2)
-        xp = torch.zeros(lo.n_block_rows * b, dtype=dtype, device=device)
-        xp[:n] = x
-        yb = torch.mv(Ab, xp)[:n]
-        b_err = float((yb - y1).abs().max()) / float(yp.abs().max())
-        if not b_err <= tol:
-            raise AssertionError(f"torch.sparse_bsr_tensor product of the "
-                                 f"tail disagrees: {b_err}")
-        bsr_ms = _time_ms(lambda: torch.mv(Ab, xp))
-        del Ab, blocks, xp, yb
-    except (RuntimeError, NotImplementedError, TypeError) as e:
-        bsr_note = f"did not run: {str(e).splitlines()[0][:160]}"
+    bsr_ms, bsr_note = _bsr_library(A, x, ys, scale, tol, device)
     rate = _peak_bytes(torch.cuda.get_device_name(device))
     peak = PEAK_FLOPS[str(dtype).split(".")[1]]
     isz = A.vals.element_size()
-    n_runs = rr.numel()
-    x_blocks = int(torch.unique(cols).numel())
     t_bytes = (nnz + 2 * n) * isz / rate
     t_ops = 2 * nnz / peak
     bound_ms = 1e3 * max(t_bytes, t_ops)
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
-    storage_bound_ms = 1e3 * max(
-        (64 * nb * isz + nb * 8 + (2 * n_runs + 1) * 8
-         + 2 * n_runs * b * isz + x_blocks * b * isz) / rate,
-        2 * 64 * nb / peak)
+    moved = plan.bytes_per_product(isz)
+    packed_bound_ms = 1e3 * max(moved / rate, 2 * plan.n_packed / peak)
+    storage_bound_ms = _tail_storage_bound_ms(A, rate, peak)
+    plan_bytes = sum(v.numel() * v.element_size() for v in (
+        plan.rows, plan.cols, plan.ptr, plan.positions, plan.pad))
     out = {"ms": ms, "cold_ms": cold_ms, "plain_ms": plain_ms,
            "library_ms": library_ms, "bsr_library_ms": bsr_ms,
            "bsr_library": bsr_note, "bound_ms": bound_ms,
-           "bound_by": bound_by, "storage_bound_ms": storage_bound_ms,
-           "max_abs_err": err, "rel": rel, "bitwise": bitwise,
-           "nb": nb, "n_runs": n_runs, "nnz": nnz,
-           "fill": nnz / (64 * nb), "tail_bytes": 64 * nb * isz}
-    print(f"[unstructured] bsr_tail {label} {dtype} (nb={nb}, {n_runs} "
-          f"block rows, {nnz} structural entries = {100 * out['fill']:.1f}% "
-          f"of the 64 nb stored): max|y-y_plain|/max|y| {rel:.3e} (abs "
-          f"{err:.3e}), repeat {'bitwise equal' if bitwise else 'DIFFERS'}; "
-          f"kernel {ms:.4f} ms, {cold_ms:.4f} ms with L2 flushed; plain "
+           "bound_by": bound_by, "packed_bound_ms": packed_bound_ms,
+           "storage_bound_ms": storage_bound_ms, "max_abs_err": err,
+           "rel": rel, "rel_storage": rel_storage, "bitwise": bitwise,
+           "nb": nb, "nnz": nnz, "fill": nnz / (b * b * nb),
+           "n_packed": plan.n_packed, "padding_share": plan.padding_share,
+           "n_touched": plan.n_touched, "bytes_per_product": moved,
+           "plan_bytes": plan_bytes, "plan_build_s": plan.build_s,
+           "pack_ms": pack_ms, "tail_bytes": b * b * nb * isz,
+           "far_share": _far_share(plan)}
+    print(f"[unstructured] bsr_tail_packed {label} {dtype} (nb={nb}, {nnz} "
+          f"structural entries = {100 * out['fill']:.2f}% of the 64 nb "
+          f"stored, {plan.n_touched} rows, {plan.n_packed} packed slots, "
+          f"padding {100 * plan.padding_share:.2f}%): max|y-y_plain|/max|y|"
+          f" {rel:.3e} (abs {err:.3e}), against the BSR storage's product "
+          f"{rel_storage:.3e}, repeat "
+          f"{'bitwise equal' if bitwise else 'DIFFERS'}; kernel {ms:.4f} ms "
+          f"(graph replay), {cold_ms:.4f} ms with L2 flushed; plain "
           f"{plain_ms:.4f} ms; CSR torch.mv {library_ms:.4f} ms; "
           f"torch.sparse_bsr_tensor mv "
           f"{'%.4f ms' % bsr_ms if bsr_ms is not None else bsr_note}; "
           f"structural bound {bound_ms:.4f} ms ({bound_by}; "
           f"{100 * bound_ms / ms:.1f}% of it, {100 * bound_ms / cold_ms:.1f}%"
           f" cold; CSR torch.mv {100 * bound_ms / library_ms:.1f}%); "
-          f"whole-storage bound {storage_bound_ms:.4f} ms "
-          f"({100 * storage_bound_ms / ms:.0f}% of it)")
+          f"packed bound {packed_bound_ms:.4f} ms ({moved} B per product, "
+          f"{100 * packed_bound_ms / ms:.1f}%); whole-storage bound "
+          f"{storage_bound_ms:.4f} ms; plan {plan_bytes / 1e6:.1f} MB built "
+          f"in {plan.build_s:.3f} s; pack {pack_ms:.3f} ms; "
+          f"{100 * out['far_share']:.2f}% of the entries 2^15 or more "
+          f"from their row")
     tol_k = 1e-12 if dtype == torch.float64 else 1e-6
-    if not (rel <= tol_k and bitwise):
-        raise AssertionError(f"bsr_tail {label} {dtype}: rel {rel}, "
-                             f"bitwise {bitwise}")
+    if not (rel <= tol_k and rel_storage <= tol_k and bitwise):
+        raise AssertionError(f"bsr_tail_packed {label} {dtype}: rel {rel}, "
+                             f"against the storage {rel_storage}, bitwise "
+                             f"{bitwise}")
     return out
+
+
+def _df_tail_numbers(ref: dict, layout, rng, device) -> dict:
+    """The two-float tail kernel on the df32 step's frozen A_td pair
+    (``ref`` after a df32 step: A_hi/A_lo and their packed pairs, the
+    tail's last) at a random x pair: bitwise equal to its plain version
+    on the card and to a repeat, and within 1e-12 of max|y| of the
+    float64 tail kernel on (hi + lo); then timed (graph replay, and with
+    L2 flushed) beside its plain version, the float64 tail kernel and
+    CSR ``torch.mv`` in float64 over the tail's structural entries (no
+    PyTorch call computes a two-float product), against the structural
+    bound (8 bytes per entry, x's and y's pairs once, or
+    DF_OPS_PER_ENTRY float32 operations per entry) and the packed bound
+    (``TailPlan.bytes_per_product(8)``)."""
+    from metafem_torch.linsolve import bsr_tail, offset_spmv
+    from metafem_torch.linsolve import twofloat as tf
+    from metafem_torch.linsolve.block_offset import OffsetMatrix
+    n = layout.n
+    plan = OffsetMatrix.from_values(ref["A_hi"][0], layout).tail_plan(
+        offset_spmv.DF_VEC)
+    packed = ref["A_packed"][0][-1]
+    x = tf.df_from_f64(torch.as_tensor(
+        rng.standard_normal(n) * (1.0 + rng.random(n)), device=device))
+
+    def fresh():
+        return (torch.zeros(n, dtype=torch.float32, device=device),
+                torch.zeros(n, dtype=torch.float32, device=device))
+    y = bsr_tail.tail_mv_df(packed, x.hi, x.lo, *fresh(), plan)
+    y2 = bsr_tail.tail_mv_df(packed, x.hi, x.lo, *fresh(), plan)
+    yp = bsr_tail.tail_mv_df_plain(packed, x.hi, x.lo, *fresh(), plan)
+    _sync(device)
+    repeat = all(torch.equal(a, b) for a, b in zip(y, y2))
+    vs_plain = all(torch.equal(a, b) for a, b in zip(y, yp))
+    max_abs = max(float((a - b).abs().max()) for a, b in zip(y, yp))
+    A64 = OffsetMatrix.from_values(tf.df_to_f64(
+        tf.DF(ref["A_hi"][0], ref["A_lo"][0])), layout)
+    plan64, packed64 = A64.tail_plan(), A64.packed_tail()
+    x64 = tf.df_to_f64(x)
+    y64 = bsr_tail.tail_mv(packed64, x64, torch.zeros_like(x64), plan64)
+    scale = float(y64.abs().max())
+    rel_f64 = float((tf.df_to_f64(tf.DF(*y)) - y64).abs().max()) / scale
+    del y2, yp
+    out = fresh()
+
+    def kernel():
+        bsr_tail.tail_mv_df(packed, x.hi, x.lo, *out, plan)
+    ms = _time_ms(kernel, graph=True)
+    cold_ms = _time_cold_ms(kernel, device)
+    plain_ms = _time_ms(lambda: bsr_tail.tail_mv_df_plain(
+        packed, x.hi, x.lo, *out, plan), reps=3, warmup=1)
+    y64o = torch.zeros_like(x64)
+    f64_ms = _time_ms(lambda: bsr_tail.tail_mv(packed64, x64, y64o, plan64),
+                      graph=True)
+    csr = _tail_csr(A64)
+    nnz = csr.values().numel()
+    csr_ms = _time_ms(lambda: torch.mv(csr, x64))
+    del csr, A64, packed64
+    rate = _peak_bytes(torch.cuda.get_device_name(device))
+    t_bytes = (8 * nnz + 2 * 8 * n) / rate
+    t_ops = DF_OPS_PER_ENTRY * nnz / PEAK_FLOPS["float32"]
+    bound_ms = 1e3 * max(t_bytes, t_ops)
+    moved = plan.bytes_per_product(8)
+    packed_bound_ms = 1e3 * max(moved / rate, DF_OPS_PER_ENTRY
+                                * plan.n_packed / PEAK_FLOPS["float32"])
+    res = {"ms": ms, "cold_ms": cold_ms, "plain_ms": plain_ms,
+           "f64_kernel_ms": f64_ms, "csr_f64_ms": csr_ms,
+           "bound_ms": bound_ms,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "packed_bound_ms": packed_bound_ms, "bytes_per_product": moved,
+           "nnz": nnz, "n_packed": plan.n_packed,
+           "padding_share": plan.padding_share, "max_abs_err": max_abs,
+           "bitwise_vs_plain": vs_plain, "bitwise_repeat": repeat,
+           "rel_to_f64_kernel": rel_f64}
+    print(f"[unstructured] bsr_tail_packed_df A_td ({nnz} structural "
+          f"entries, {plan.n_packed} packed slots over the float64 plan): "
+          f"against its plain version "
+          f"{'bitwise equal' if vs_plain else 'DIFFERS (max abs %.3e)' % max_abs}"
+          f", repeat {'bitwise equal' if repeat else 'DIFFERS'}, against "
+          f"the float64 tail kernel on (hi + lo) {rel_f64:.3e} of max|y|; "
+          f"kernel {ms:.4f} ms (graph replay), {cold_ms:.4f} ms with L2 "
+          f"flushed; plain {plain_ms:.4f} ms; float64 tail kernel "
+          f"{f64_ms:.4f} ms; CSR torch.mv float64 {csr_ms:.4f} ms; "
+          f"structural bound {bound_ms:.4f} ms ({res['bound_by']}; "
+          f"{100 * bound_ms / ms:.1f}% of it); packed bound "
+          f"{packed_bound_ms:.4f} ms ({moved} B per product, "
+          f"{100 * packed_bound_ms / ms:.1f}%)")
+    if not (vs_plain and repeat and rel_f64 <= 1e-12):
+        raise AssertionError(f"two-float tail kernel: plain {vs_plain}, "
+                             f"repeat {repeat}, f64 {rel_f64}")
+    return res
+
+
+def _whole_mv_numbers(A, rng, device, label) -> dict:
+    """The whole unstructured product ``A.mv`` (the packed kernel on the
+    dense group, then the packed tail kernel adding into y) against CSR
+    ``torch.mv`` over all of A's structural entries: both timed (graph
+    replay for A.mv), the two within 1e-12 (f64) or 1e-5 (f32) of max|y|,
+    beside the structural bound (entries, x and y once)."""
+    dtype = A.vals.dtype
+    x = torch.as_tensor(rng.standard_normal(A.n), dtype=dtype,
+                        device=device)
+    y = A.mv(x)
+    csr = A.to_csr()
+    nnz = csr.values().numel()
+    rel = float((torch.mv(csr, x) - y).abs().max() / y.abs().max())
+    if not rel <= (1e-12 if dtype == torch.float64 else 1e-5):
+        raise AssertionError(f"A.mv and CSR disagree on the {label}: {rel}")
+    ms = _time_ms(lambda: A.mv(x), graph=True)
+    library_ms = _time_ms(lambda: torch.mv(csr, x))
+    del csr
+    rate = _peak_bytes(torch.cuda.get_device_name(device))
+    bound_ms = 1e3 * max((nnz + 2 * A.n) * A.vals.element_size() / rate,
+                         2 * nnz / PEAK_FLOPS[str(dtype).split(".")[1]])
+    print(f"[unstructured] whole A.mv {label} {dtype} (dense group + packed "
+          f"tail, {nnz} structural entries): {ms:.4f} ms (graph replay); "
+          f"CSR torch.mv {library_ms:.4f} ms ({library_ms / ms:.2f}x the "
+          f"kernels' time); structural bound {bound_ms:.4f} ms "
+          f"({100 * bound_ms / ms:.1f}% of A.mv, "
+          f"{100 * bound_ms / library_ms:.1f}% of CSR); max rel {rel:.3e}")
+    return {"ms": ms, "library_ms": library_ms, "bound_ms": bound_ms,
+            "nnz": nnz, "rel": rel}
 
 
 def _sparse_smooth_check(A, dom, rng, device, label) -> dict:
@@ -2056,15 +2271,21 @@ def _sparse_smooth_check(A, dom, rng, device, label) -> dict:
 
 def _kernel_counts() -> tuple:
     """(packed SpMV launches by float type, BSR-tail launches by float
-    type), as plain dicts."""
+    type, two-float packed SpMV launches, two-float tail launches), as
+    plain dicts."""
     from metafem_torch.linsolve import bsr_tail, offset_spmv
     return (dict(offset_spmv.group_mv.launches_by_dtype),
-            dict(bsr_tail.tail_mv.launches_by_dtype))
+            dict(bsr_tail.tail_mv.launches_by_dtype),
+            {"df32": offset_spmv.group_mv_df.launches},
+            {"df32": bsr_tail.tail_mv_df.launches})
+
+
+KERNEL_NAMES = ("packed", "bsr_tail", "packed_df", "bsr_tail_df")
 
 
 def _count_diff(after, before) -> dict:
-    return {name: {str(k).split(".")[1]: a[k] - b[k] for k in a}
-            for name, a, b in zip(("packed", "bsr_tail"), after, before)}
+    return {name: {str(k).replace("torch.", ""): a[k] - b[k] for k in a}
+            for name, a, b in zip(KERNEL_NAMES, after, before)}
 
 
 def _converge(step, state, x, tol, device, max_calls=40) -> tuple:
@@ -2104,14 +2325,97 @@ def _tight_root(dom, x, device, **step_kw) -> tuple:
     return root, res, it
 
 
+def _unstructured_df32(dom, state, root, tol, device) -> dict:
+    """The unstructured step in the reference's own residual mode
+    (``benchmarks/pikachu_scale.py:109-116``: ``residual_mode="df32"``,
+    x as ``df_from_f64``): the split of the refined residual's freeze into
+    pairs and their pack, a converge from cold, 3 timed warm steps (each
+    below ``tol``, each launching the f32 packed and tail kernels and the
+    two-float packed and tail kernels, and no float64 kernel), the
+    device-busy ms of one step and of it the two-float tail kernel's, two
+    steps from one x bitwise equal, and the last x's T within 1e-5 *
+    max|T| of the f64 step's root.  Launch counts are set to 0 before the
+    path and read after."""
+    from metafem_torch.linsolve import bsr_tail, krylov, offset_spmv
+    from metafem_torch.linsolve import twofloat as tf
+    from metafem_torch.solver.jit_step import _df_operator
+    lo = dom.pattern.offset_layout
+    step = dom.make_refined_step(sv_func=krylov.bicgstab, precond="auxmg",
+                                 residual_mode="df32", **PIKACHU_STEP)
+    offset_spmv.reset_launches()
+    bsr_tail.reset_launches()
+    _sync(device)
+    t0 = time.perf_counter()
+    _df_operator(dom._refined, lo)
+    _sync(device)
+    split_s = time.perf_counter() - t0
+    cold_s, res_c, it_c, xd = _converge(
+        step, state, tf.df_from_f64(dom.x.to(torch.float64)), tol, device)
+    trials = []
+    for k in range(3):
+        x1 = tf.df_from_f64(tf.df_to_f64(xd) * (1.0 + 1e-4 * (k + 1)))
+        before = _kernel_counts()
+        s, res, it, xd = _converge(step, state, x1, tol, device)
+        trials.append({"ms": 1e3 * s, "residual": res, "refines": it,
+                       "launches": _count_diff(_kernel_counts(), before)})
+    counts = _kernel_counts()
+    path = _count_diff(counts, [{k: 0 for k in c} for c in counts])
+    used = {"packed": "float32", "bsr_tail": "float32",
+            "packed_df": "df32", "bsr_tail_df": "df32"}
+    if not all(t["launches"][k][w] > 0 for t in trials
+               for k, w in used.items()) or any(
+                   path[k]["float64"] for k in ("packed", "bsr_tail")):
+        raise AssertionError(f"the df32 unstructured path launched {path}, "
+                             f"per step {[t['launches'] for t in trials]}")
+    if not (res_c < tol and all(t["residual"] < tol for t in trials)):
+        raise AssertionError(f"df32 unstructured steps: cold {res_c}, "
+                             f"{trials}")
+    n_prof, kernels = _kernel_profile(
+        lambda: _converge(step, state, x1, tol, device), device)
+    busy = sum(kernels.values())
+    df_tail_busy = sum(v for k_, v in kernels.items()
+                       if "bsr_tail_packed_df" in k_)
+    tail_busy = sum(v for k_, v in kernels.items() if "bsr_tail" in k_)
+    xa = _converge(step, state, x1, tol, device)[3]
+    xb = _converge(step, state, x1, tol, device)[3]
+    if not (torch.equal(xa.hi, xb.hi) and torch.equal(xa.lo, xb.lo)):
+        raise AssertionError("two df32 unstructured steps from one x differ")
+    rel = float((tf.df_to_f64(xd) - root).abs().max() / root.abs().max())
+    ms = float(np.median([t["ms"] for t in trials]))
+    finals = [float(f"{t['residual']:.3e}") for t in trials]
+    print(f"[unstructured] df32 step (residual_mode='df32', x as a DF "
+          f"pair): A_td and b split into pairs and packed {split_s:.2f} s; "
+          f"converge from cold {cold_s:.2f} s, residual {res_c:.3e} in "
+          f"{it_c} refines; 3 warm steps median {ms:.2f} ms over "
+          f"{[round(t['ms'], 2) for t in trials]} ms, refines "
+          f"{[t['refines'] for t in trials]}, final residuals "
+          f"{finals}; "
+          f"device busy {busy:.2f} ms per step (torch.profiler; the "
+          f"two-float tail {df_tail_busy:.3f} ms, both tail kernels "
+          f"{tail_busy:.3f} ms; {n_prof or 'not measured'} kernel "
+          f"launches; the most: {_top_kernels(kernels)}); launches per step "
+          f"{[t['launches'] for t in trials]}; "
+          f"two steps from one x bitwise equal; T within {rel:.3e} * "
+          f"max|T| of the f64 step's root")
+    if not rel <= 1e-5:
+        raise AssertionError(f"df32 unstructured T off the root: {rel}")
+    return {"step_ms": ms, "busy_ms": busy, "df_tail_busy_ms": df_tail_busy,
+            "tail_busy_ms": tail_busy, "trials": trials,
+            "path_launches": path, "cold_s": cold_s, "split_s": split_s,
+            "rel_to_root": rel}
+
+
 def phase_unstructured(device, nel=UNSTRUCT_NEL, layout_opts=None) -> dict:
     """The unstructured production path (benchmarks/pikachu_scale.py) on
     pikachu's weak form over a jittered order-2 tet brick
     (metafem_torch/examples/pikachu_brick.py), float32 domain, float64
-    residuals: the one-time phases, the BSR-tail kernel on the f32
-    tangent and the f64 A_td, 3 timed refined steps (auxmg with
-    smooth='full', BiCGStab, maxiter 12, forcing 0.3) with launches per
-    step and device-busy time, a bitwise repeat; one step with
+    residuals: the one-time phases, the packed BSR-tail kernel and the
+    whole product A.mv on the f32 tangent and the f64 A_td, 3 timed
+    refined steps (auxmg with smooth='full', BiCGStab, maxiter 12,
+    forcing 0.3) with launches per step and device-busy time, a bitwise
+    repeat; their df32 twin (``_unstructured_df32``) and the two-float
+    tail and dense-group kernels on its A_td (``_df_tail_numbers``,
+    ``_df_spmv``); one step with
     smooth='sparse' and inner_operator='sparse'; one update_one_step
     with make_iterative_solver(precond='auxmg'), its T within 1e-5 of
     the refined step's root."""
@@ -2174,11 +2478,13 @@ def phase_unstructured(device, nel=UNSTRUCT_NEL, layout_opts=None) -> dict:
     bsr32 = _bsr_numbers(A32, rng, device, "tangent")
     spmv32 = _spmv_at_size(A32.dense_part(), rng, device,
                            "tangent's dense part", tag="unstructured")
+    whole = {"f32": _whole_mv_numbers(A32, rng, device, "tangent")}
     del A32
     A64 = OffsetMatrix.from_values(dom._refined["A"][0], lo)
     bsr64 = _bsr_numbers(A64, rng, device, "A_td")
     spmv64 = _spmv_at_size(A64.dense_part(), rng, device,
                            "A_td's dense part", tag="unstructured")
+    whole["f64"] = _whole_mv_numbers(A64, rng, device, "A_td")
     del A64
     gc.collect()
     if not spmv64["rel"] <= 1e-14:
@@ -2204,11 +2510,10 @@ def phase_unstructured(device, nel=UNSTRUCT_NEL, layout_opts=None) -> dict:
     counts = _kernel_counts()
     path = {"packed": sum(counts[0].values()),
             "bsr_tail": sum(counts[1].values())}
-    path_by_type = _count_diff(counts, ({k: 0 for k in counts[0]},
-                                        {k: 0 for k in counts[1]}))
+    path_by_type = _count_diff(counts, [{k: 0 for k in c} for c in counts])
     if path["packed"] <= 0 or path["bsr_tail"] <= 0 or not all(
-            min(sum(v.values()) for v in t["launches"].values()) > 0
-            for t in trials):
+            min(sum(t["launches"][k].values())
+                for k in ("packed", "bsr_tail")) > 0 for t in trials):
         raise AssertionError(f"the unstructured path launched {path}, per "
                              f"step {[t['launches'] for t in trials]}")
     if not (res_c < tol and all(t["residual"] < tol for t in trials)):
@@ -2232,10 +2537,15 @@ def phase_unstructured(device, nel=UNSTRUCT_NEL, layout_opts=None) -> dict:
           f"{finals}; "
           f"device busy {busy:.2f} ms per step (torch.profiler; the BSR "
           f"tail {bsr_busy:.2f} ms; {n_prof or 'not measured'} kernel "
-          f"launches); launches per step {[t['launches'] for t in trials]}; "
+          f"launches; the most: {_top_kernels(kernels)}); launches per "
+          f"step {[t['launches'] for t in trials]}; "
           f"path launches {path}; two steps from one x bitwise equal; "
           f"the root, converged further: residual {res_root:.3e} after "
           f"{it_root} more refines")
+    df32 = _unstructured_df32(dom, state, root, tol, device)
+    df_tail = _df_tail_numbers(dom._refined, lo, rng, device)
+    df_dense = _df_spmv(dom._refined, lo, rng, device,
+                        "the df32 A_td's dense group", tag="unstructured")
 
     # smooth='sparse': the sparsified smoother with the exact inner
     # operator, then with the sparsified inner operator as well
@@ -2311,7 +2621,8 @@ def phase_unstructured(device, nel=UNSTRUCT_NEL, layout_opts=None) -> dict:
     return {"dof": n, "nel": list(nel), "n_dense": lo.n_dense,
             "nb": lo.n_coo, "one_time_s": once, "setup_auxmg_s": aux_s,
             "bsr32": bsr32, "bsr64": bsr64, "spmv32": spmv32,
-            "spmv64": spmv64, "step_ms": ms,
+            "spmv64": spmv64, "whole_mv": whole, "df32": df32,
+            "df_tail": df_tail, "df_dense": df_dense, "step_ms": ms,
             "busy_ms": busy, "bsr_busy_ms": bsr_busy, "trials": trials,
             "path_launches": path, "path_launches_by_type": path_by_type,
             "cold_s": cold_s, "sparse": sparse, "sparse_setup_s": aux_sp,
@@ -2465,26 +2776,58 @@ def main() -> None:
                           if k != "trials"},
         "cavity_2d": {**{k: v for k, v in mfp["cavity"]["df32"].items()
                          if k != "df_spmv"},
-                      **mfp["cavity"]["df32"]["df_spmv"]}}, {
+                      **mfp["cavity"]["df32"]["df_spmv"]},
+        # the df32 unstructured path's one dense group (59 offsets,
+        # Morton numbering): its launches there, its A_td's numbers
+        "unstructured": {
+            **uns["df_dense"],
+            "launches": uns["df32"]["path_launches"]["packed_df"]["df32"],
+            "launches_per_step": [t["launches"]["packed_df"]["df32"]
+                                  for t in uns["df32"]["trials"]]}}, {
         "name": "bsr_tail_spmv", "route": "cuda",
         "source": "metafem_torch/csrc/bsr_tail.cu",
         "replaces": ("metafem/linsolve/block_offset.py:372 (_blk_tail_mv, "
                      "XLA; no Pallas kernel)"),
-        # the unstructured path's launches; the numbers of its f32
-        # tangent's tail at 1,369,650 DOF
+        # the f64-residual unstructured path's launches; the numbers of
+        # its f32 tangent's tail at 1,369,650 DOF
         "launches": uns["path_launches"]["bsr_tail"],
         "max_abs_err": uns["bsr32"]["max_abs_err"],
         "ms": uns["bsr32"]["ms"], "plain_ms": uns["bsr32"]["plain_ms"],
         "bound_ms": uns["bsr32"]["bound_ms"],
         "bound_by": uns["bsr32"]["bound_by"],
-        # CSR torch.mv over the tail's structural entries
+        # CSR torch.mv over the tail's structural entries; bound_ms
+        # counts those entries, packed_bound_ms the tail plan's bytes,
+        # storage_bound_ms the whole BSR storage (see _bsr_numbers)
         "library_ms": uns["bsr32"]["library_ms"],
         "f32_tangent": uns["bsr32"], "f64_A_td": uns["bsr64"],
         "launches_per_step": [t["launches"] for t in uns["trials"]],
+        # the whole product A.mv (dense group + tail) against CSR
+        "whole_mv": uns["whole_mv"],
         "unstructured": {k: v for k, v in uns.items()
                          if k not in ("bsr32", "bsr64", "spmv32", "spmv64",
-                                      "trials")},
-        "steps": uns["trials"]}]}))
+                                      "trials", "whole_mv", "df32",
+                                      "df_tail", "df_dense")},
+        "steps": uns["trials"]}, {
+        "name": "df_bsr_tail_spmv", "route": "cuda",
+        "source": "metafem_torch/csrc/bsr_tail.cu",
+        "replaces": ("metafem/linsolve/twofloat.py:236 (df_offset_mv, its "
+                     "BSR branch :276-300; XLA, no Pallas kernel)"),
+        # the df32 unstructured path's launches; the numbers of its A_td
+        "launches": uns["df32"]["path_launches"]["bsr_tail_df"]["df32"],
+        "max_abs_err": uns["df_tail"]["max_abs_err"],
+        "ms": uns["df_tail"]["ms"], "plain_ms": uns["df_tail"]["plain_ms"],
+        "bound_ms": uns["df_tail"]["bound_ms"],
+        "bound_by": uns["df_tail"]["bound_by"],
+        # no PyTorch call computes a two-float product: the float64 tail
+        # kernel and CSR torch.mv in float64 on the same entries stand
+        # beside it
+        "library_ms": None, **{k: v for k, v in uns["df_tail"].items()
+                               if k not in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by", "max_abs_err")},
+        "launches_per_step": [t["launches"] for t in uns["df32"]["trials"]],
+        "df32_unstructured": {k: v for k, v in uns["df32"].items()
+                              if k != "trials"},
+        "steps": uns["df32"]["trials"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,124 +1,268 @@
-// SpMV of the BSR tail of the block-offset storage (blk_b = 8):
+// SpMV of the BSR tail of the block-offset storage, over the packed rows
+// of the tail's structural entries:
 //
-//   y[R*8 + i] += sum_k sum_j vals[(i*8 + j)*nb + k] * x[cols[k]*8 + j]
+//   y[row] += sum_s vals[s] * x[cols[s]]
 //
-// over the blocks k of block row R, for every block row that holds a run
-// of tail blocks (the tail's block rows are sorted, so the blocks of one
-// row are one run [run_start[r], run_start[r+1]) with row run_row[r]).
-// The unstructured meshes' tangent spills its rare offsets into this
-// tail; the dense offsets go through offset_spmv.cu first and this
-// kernel adds into the y that kernel wrote.  Replaces the reference's
-// metafem/linsolve/block_offset.py:_blk_tail_mv, which XLA compiled on
-// the TPU (it has no Pallas kernel).
+// over the slots s of each packed row, built once per layout by the tail
+// plan (metafem_torch/linsolve/bsr_tail.py: build_tail_plan) from the
+// BSR storage, y[R*8 + i] += sum_k sum_j vals[(i*8 + j)*nb + k] *
+// x[cols[k]*8 + j].  The unstructured meshes' tangent spills its rare
+// offsets into that tail; the dense offsets go through offset_spmv.cu
+// first and this kernel adds into the y that kernel wrote.  Replaces the
+// reference's metafem/linsolve/block_offset.py:372 (_blk_tail_mv), which
+// XLA compiled on the TPU (it has no Pallas kernel).
 //
-// The storage is component-major: entry (i, j) of block k lies at
-// (i*8 + j)*nb + k of `vals` (the tail's first value), so the block axis
-// is the minor one and consecutive blocks are consecutive addresses.
+// The plan.  Packed row q = slice*32 + lane is matrix row rows[q] (-1: a
+// lane that pads the last slice); its entries run in ascending column.
+// Rows are sorted by entry count within windows of 4,096 rows and cut
+// into slices of 32 rows, and the slices are ordered by their longest
+// row.  Slot group m (V slots: 2 for double, 4 for float; 16 bytes of
+// values) of row q lies at ptr[m] + q*V of `vals` and `cols`, sliced
+// jagged-diagonal, so the 32 lanes of a warp read 512 contiguous bytes of
+// values and 256 or 512 of column ids per load.  Slice s reaches group m
+// while ptr[m] + q*V < ptr[m+1]: every row of a slice runs to its
+// slice's longest row, through slots of zero value and a valid column.
 //
-// Bound: memory.  One product reads the 64*nb values once (at 1.37M
-// DOF, 4.4M blocks: 1.1 GB in float32), the nb column ids, x (a block
-// of 8 contiguous values per block, from L2) and the run tables, and
-// writes the touched rows of y.
-// Design: one warp per run.  Lane l takes the blocks start + l, start +
-// l + 32, ..., so a warp's load of one component (i, j) reads 32
-// consecutive values: 128 contiguous bytes in float32.  For each of its
-// blocks a lane reads the block's 8 x values (one 32-byte sector in
-// float32) through the read-only cache, not staged in shared memory (a
-// shared-memory window lost to reads through the cache on the tangent's
-// own stream, gather_probe.cu), and adds the 8 products of each row i
-// into its own sum for i in order j = 0..7.  The warp then sums each
-// row's 32 lane sums by a fixed xor-shuffle tree (16, 8, 4, 2, 1), and
-// lane i writes y[R*8 + i] once.  No atomics and a fixed order: y
-// repeats bitwise.  A block row at the edge (R*8 + i >= n) is masked,
-// and so are the x values of an edge block column.  Every value and x
-// address is computed in int64 (64*nb passes 2^31 at full size).  Plain
-// C interface for ctypes; each entry point returns cudaGetLastError()
-// after the launch.
+// Bound: memory.  One product reads the packed values and their int32
+// column ids once (at 1.37M DOF: 19.7M slots, ~157 MB in float32, ~236 MB
+// in float64), the row ids, x (through the read-only cache; it stays in
+// L2: 5.5 MB in float32, 11 MB in float64), and reads and writes each
+// touched row of y once.  Why the BSR storage lost: 93% of its 64*nb
+// stored values are zeros that the assembly never writes, so a kernel
+// over the blocks streamed 14x the bytes the product needs (1.16 GB in
+// float32).  The column ids now double the bytes of the values; the
+// structural bound (values, x and y once) stays the yardstick.
+// Design: one thread per packed row walks its slot groups with 16-byte
+// (values) and 16- or 8-byte (column ids) loads through the
+// non-coherent path, unrolled four deep so that several loads are in
+// flight, sums its products in the plan's order (nvcc contracts
+// acc += v*x into an FMA; a zero value leaves acc unchanged), and adds
+// the sum into y[row] once.  Rows are distinct, so no atomics: y repeats
+// bitwise.  ptr sits in shared memory.  Every value and x address is
+// computed in int64.  Plain C interface for ctypes; each entry point
+// returns cudaGetLastError() after the launch.
+//
+// The two-float product (bsr_tail_packed_df) computes the same sum with
+// every value an (hi, lo) pair of floats, as the BSR branch of the
+// reference's metafem/linsolve/twofloat.py:236 (df_offset_mv, XLA, no
+// Pallas kernel) does.  It walks the float64 plan (V = 2): slot s holds
+// the pair (hi, lo) of its entry, so a 16-byte load brings two entries
+// and the kernel reads the bytes the float64 one reads; x's words come
+// from two vectors.  Each row sums its entries into a fresh pair with
+// df_add in the plan's order, then df_adds the row's pair into (y_hi,
+// y_lo).  The error-free transforms must not be contracted, so every
+// add, subtract and multiply in them is __fadd_rn/__fsub_rn/__fmul_rn,
+// which nvcc never fuses into an FMA, and two_prod's error is fmaf(a, b,
+// -a*b), the exact error that the Dekker split computes.  The float
+// kernels keep nvcc's contraction: no file-wide --fmad=false.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kB = 8;            // block size of the tail
-constexpr int kWarps = 8;        // warps per thread block
-constexpr int kThreads = 32 * kWarps;
+constexpr int kSlice = 32;
+constexpr int kThreads = 256;
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-bsr_tail_kernel(const T* __restrict__ vals, const T* __restrict__ x,
-                T* __restrict__ y, const int64_t* __restrict__ cols,
-                const int64_t* __restrict__ run_start,
-                const int64_t* __restrict__ run_row, int64_t n_runs,
-                int64_t nb, int64_t n) {
-  const int lane = threadIdx.x & 31;
-  const int64_t r = static_cast<int64_t>(blockIdx.x) * kWarps
-                    + (threadIdx.x >> 5);
-  if (r >= n_runs) return;             // whole warps leave together
-  const int64_t k0 = run_start[r];
-  const int64_t k1 = run_start[r + 1];
-  T acc[kB];
-#pragma unroll
-  for (int i = 0; i < kB; ++i) acc[i] = T(0);
-  for (int64_t k = k0 + lane; k < k1; k += 32) {
-    const int64_t c0 = __ldg(cols + k) * kB;
-    T xb[kB];
-    if (c0 + kB <= n) {
-#pragma unroll
-      for (int j = 0; j < kB; ++j) xb[j] = __ldg(x + c0 + j);
-    } else {
-#pragma unroll
-      for (int j = 0; j < kB; ++j)
-        xb[j] = c0 + j < n ? __ldg(x + c0 + j) : T(0);
-    }
-#pragma unroll
-    for (int i = 0; i < kB; ++i) {
-#pragma unroll
-      for (int j = 0; j < kB; ++j)
-        acc[i] = fma(__ldg(vals + (i * kB + j) * nb + k), xb[j], acc[i]);
-    }
+struct Vec;
+
+template <>
+struct Vec<double> {
+  using type = double2;
+  using index = int2;
+  static constexpr int n = 2;
+  __device__ static double at(const double2& v, int t) {
+    return t == 0 ? v.x : v.y;
   }
-#pragma unroll
-  for (int i = 0; i < kB; ++i) {
-#pragma unroll
-    for (int s = 16; s > 0; s >>= 1)
-      acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], s);
+  __device__ static int col(const int2& c, int t) {
+    return t == 0 ? c.x : c.y;
   }
-  // every lane holds every row's sum; lane i writes row i
-  T mine = acc[0];
-#pragma unroll
-  for (int i = 1; i < kB; ++i)
-    if (lane == i) mine = acc[i];
-  const int64_t row = run_row[r] * kB + lane;
-  if (lane < kB && row < n) y[row] += mine;
+};
+
+template <>
+struct Vec<float> {
+  using type = float4;
+  using index = int4;
+  static constexpr int n = 4;
+  __device__ static float at(const float4& v, int t) {
+    return t == 0 ? v.x : t == 1 ? v.y : t == 2 ? v.z : v.w;
+  }
+  __device__ static int col(const int4& c, int t) {
+    return t == 0 ? c.x : t == 1 ? c.y : t == 2 ? c.z : c.w;
+  }
+};
+
+// ptr into shared memory; the slot groups that packed row q's slice
+// reaches (the same for the 32 lanes of a warp)
+__device__ __forceinline__ int load_ptr(const int64_t* __restrict__ ptr,
+                                        int64_t* s_ptr, int64_t n_groups,
+                                        int64_t q, int v) {
+  for (int64_t i = threadIdx.x; i <= n_groups; i += blockDim.x)
+    s_ptr[i] = ptr[i];
+  __syncthreads();
+  int ng = 0;
+  while (ng < n_groups && s_ptr[ng] + q * v < s_ptr[ng + 1]) ++ng;
+  return ng;
 }
 
 template <typename T>
-int launch(const void* vals, const void* x, void* y, const void* cols,
-           const void* run_start, const void* run_row, int64_t n_runs,
-           int64_t nb, int64_t n, void* stream) {
-  if (n_runs == 0) return 0;
+__global__ void __launch_bounds__(kThreads)
+bsr_tail_packed_kernel(const T* __restrict__ vals,
+                       const int32_t* __restrict__ cols,
+                       const T* __restrict__ x, T* __restrict__ y,
+                       const int32_t* __restrict__ rows,
+                       const int64_t* __restrict__ ptr, int64_t n_slices,
+                       int64_t n_groups) {
+  using VT = typename Vec<T>::type;
+  using IT = typename Vec<T>::index;
+  constexpr int kV = Vec<T>::n;
+  extern __shared__ int64_t s_ptr[];
+  const int64_t q = static_cast<int64_t>(blockIdx.x) * blockDim.x
+                    + threadIdx.x;
+  const int ng = load_ptr(ptr, s_ptr, n_groups, q, kV);
+  if (q >= n_slices * kSlice) return;
+  const int32_t row = rows[q];
+  if (row < 0) return;
+  T acc = T(0);
+#pragma unroll 4
+  for (int m = 0; m < ng; ++m) {
+    const int64_t s = s_ptr[m] + q * kV;
+    const VT v = __ldg(reinterpret_cast<const VT*>(vals + s));
+    const IT c = __ldg(reinterpret_cast<const IT*>(cols + s));
+#pragma unroll
+    for (int t = 0; t < kV; ++t)
+      acc = fma(Vec<T>::at(v, t),
+                __ldg(x + static_cast<int64_t>(Vec<T>::col(c, t))), acc);
+  }
+  y[row] += acc;
+}
+
+// ----- the two-float product ------------------------------------------
+
+__device__ __forceinline__ void two_sum(float a, float b, float& s,
+                                        float& e) {
+  s = __fadd_rn(a, b);
+  const float bb = __fsub_rn(s, a);
+  e = __fadd_rn(__fsub_rn(a, __fsub_rn(s, bb)), __fsub_rn(b, bb));
+}
+
+// (xh, xl) += (yh, yl): two_sum of the high words, then fast_two_sum of
+// the sum and the low words' error (twofloat.df_add)
+__device__ __forceinline__ void df_add(float& xh, float& xl, float yh,
+                                       float yl) {
+  float s, e;
+  two_sum(xh, yh, s, e);
+  const float t = __fadd_rn(e, __fadd_rn(xl, yl));
+  xh = __fadd_rn(s, t);
+  xl = __fsub_rn(t, __fsub_rn(xh, s));
+}
+
+// one entry: (p, e) = two_prod(v_hi, x_hi), e += v_hi*x_lo + v_lo*x_hi,
+// then df_add into the row's pair
+__device__ __forceinline__ void df_entry(float& rh, float& rl, float vh,
+                                         float vl, float xh, float xl) {
+  const float p = __fmul_rn(vh, xh);
+  float e = fmaf(vh, xh, -p);
+  e = __fadd_rn(e, __fadd_rn(__fmul_rn(vh, xl), __fmul_rn(vl, xh)));
+  df_add(rh, rl, p, e);
+}
+
+__global__ void __launch_bounds__(kThreads)
+bsr_tail_packed_df_kernel(const float4* __restrict__ vals,
+                          const int32_t* __restrict__ cols,
+                          const float* __restrict__ x_hi,
+                          const float* __restrict__ x_lo,
+                          float* __restrict__ y_hi, float* __restrict__ y_lo,
+                          const int32_t* __restrict__ rows,
+                          const int64_t* __restrict__ ptr, int64_t n_slices,
+                          int64_t n_groups) {
+  constexpr int kV = 2;                  // entries per 16-byte load
+  extern __shared__ int64_t s_ptr[];
+  const int64_t q = static_cast<int64_t>(blockIdx.x) * blockDim.x
+                    + threadIdx.x;
+  const int ng = load_ptr(ptr, s_ptr, n_groups, q, kV);
+  if (q >= n_slices * kSlice) return;
+  const int32_t row = rows[q];
+  if (row < 0) return;
+  float rh = 0.f, rl = 0.f;
+#pragma unroll 4
+  for (int m = 0; m < ng; ++m) {
+    const int64_t s = s_ptr[m] + q * kV;
+    // slots s, s + 1 = float4 s/2 (s is even: ptr[m] and q*2 are)
+    const float4 v = __ldg(vals + s / kV);
+    const int2 c = __ldg(reinterpret_cast<const int2*>(cols + s));
+    const int64_t c0 = c.x, c1 = c.y;
+    df_entry(rh, rl, v.x, v.y, __ldg(x_hi + c0), __ldg(x_lo + c0));
+    df_entry(rh, rl, v.z, v.w, __ldg(x_hi + c1), __ldg(x_lo + c1));
+  }
+  float yh = y_hi[row], yl = y_lo[row];
+  df_add(yh, yl, rh, rl);
+  y_hi[row] = yh;
+  y_lo[row] = yl;
+}
+
+// lets `kernel` take `smem` bytes of dynamic shared memory where that is
+// above the default 48 KB
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+template <typename T>
+int launch(const void* vals, const void* cols, const void* x, void* y,
+           const void* rows, const void* ptr, int64_t n_slices,
+           int64_t n_groups, void* stream) {
+  const int64_t n_threads = n_slices * kSlice;
+  if (n_threads == 0) return 0;
+  const size_t smem = static_cast<size_t>(n_groups + 1) * sizeof(int64_t);
+  const cudaError_t err = allow_smem(bsr_tail_packed_kernel<T>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned grid =
-      static_cast<unsigned>((n_runs + kWarps - 1) / kWarps);
-  bsr_tail_kernel<T><<<grid, kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(vals), static_cast<const T*>(x),
-      static_cast<T*>(y), static_cast<const int64_t*>(cols),
-      static_cast<const int64_t*>(run_start),
-      static_cast<const int64_t*>(run_row), n_runs, nb, n);
+      static_cast<unsigned>((n_threads + kThreads - 1) / kThreads);
+  bsr_tail_packed_kernel<T><<<grid, kThreads, smem,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(vals), static_cast<const int32_t*>(cols),
+      static_cast<const T*>(x), static_cast<T*>(y),
+      static_cast<const int32_t*>(rows), static_cast<const int64_t*>(ptr),
+      n_slices, n_groups);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-#define BSR_TAIL_MV(NAME, T)                                               \
-  extern "C" int NAME(const void* vals, const void* x, void* y,            \
-                      const void* cols, const void* run_start,             \
-                      const void* run_row, int64_t n_runs, int64_t nb,     \
-                      int64_t n, void* stream) {                           \
-    return launch<T>(vals, x, y, cols, run_start, run_row, n_runs, nb, n,  \
+#define BSR_TAIL_PACKED(NAME, T)                                           \
+  extern "C" int NAME(const void* vals, const void* cols, const void* x,   \
+                      void* y, const void* rows, const void* ptr,          \
+                      int64_t n_slices, int64_t n_groups, void* stream) {  \
+    return launch<T>(vals, cols, x, y, rows, ptr, n_slices, n_groups,      \
                      stream);                                              \
   }
 
-BSR_TAIL_MV(bsr_tail_mv_f64, double)
-BSR_TAIL_MV(bsr_tail_mv_f32, float)
+BSR_TAIL_PACKED(bsr_tail_packed_f64, double)
+BSR_TAIL_PACKED(bsr_tail_packed_f32, float)
+
+extern "C" int bsr_tail_packed_df(const void* vals, const void* cols,
+                                  const void* x_hi, const void* x_lo,
+                                  void* y_hi, void* y_lo, const void* rows,
+                                  const void* ptr, int64_t n_slices,
+                                  int64_t n_groups, void* stream) {
+  const int64_t n_threads = n_slices * kSlice;
+  if (n_threads == 0) return 0;
+  const size_t smem = static_cast<size_t>(n_groups + 1) * sizeof(int64_t);
+  const cudaError_t err = allow_smem(bsr_tail_packed_df_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned grid =
+      static_cast<unsigned>((n_threads + kThreads - 1) / kThreads);
+  bsr_tail_packed_df_kernel<<<grid, kThreads, smem,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(vals), static_cast<const int32_t*>(cols),
+      static_cast<const float*>(x_hi), static_cast<const float*>(x_lo),
+      static_cast<float*>(y_hi), static_cast<float*>(y_lo),
+      static_cast<const int32_t*>(rows), static_cast<const int64_t*>(ptr),
+      n_slices, n_groups);
+  return static_cast<int>(cudaGetLastError());
+}

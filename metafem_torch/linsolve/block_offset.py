@@ -23,8 +23,9 @@ The device half is ``OffsetMatrix``: ``mv`` packs each dense group's
 structural values once (``offset_spmv.PackPlan``) and, on a CUDA tensor,
 launches the hand-written kernel of ``offset_spmv.py`` once per dense
 group, then, where the layout has a BSR tail (unstructured meshes), the
-tail kernel of ``bsr_tail.py``, which adds into the same y; on a CPU
-tensor it runs those kernels' plain PyTorch versions.
+tail kernel of ``bsr_tail.py`` over the tail's packed structural values
+(``bsr_tail.TailPlan``), which adds into the same y; on a CPU tensor it
+runs those kernels' plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -282,8 +283,8 @@ def tail_runs(layout: OffsetLayout):
     """The run structure of the BSR tail's sorted block rows, computed on
     the host once per layout and kept on it: (run_start int64 [n_runs +
     1], the first block of each run with nb at the end; run_row int64
-    [n_runs], each run's block row; levels, ceil(log2) of the longest
-    run, the depth of the two-float product's segmented tree)."""
+    [n_runs], each run's block row).  The plan of ``bsr_tail_mv_plain``,
+    the BSR storage's own product."""
     cached = layout.__dict__.get("_tail_runs")
     if cached is None:
         rows = np.asarray(layout.coo_rows)
@@ -291,10 +292,7 @@ def tail_runs(layout: OffsetLayout):
             np.concatenate([[True], rows[1:] != rows[:-1]])) \
             if rows.size else np.zeros(0, np.int64)
         run_start = np.concatenate([starts, [rows.size]]).astype(np.int64)
-        lens = np.diff(run_start)
-        levels = (int(np.ceil(np.log2(max(int(lens.max()), 1))))
-                  if lens.size else 0)
-        cached = (run_start, rows[starts].astype(np.int64), levels)
+        cached = (run_start, rows[starts].astype(np.int64))
         layout._tail_runs = cached
     return cached
 
@@ -350,8 +348,9 @@ def _device_tables(layout: OffsetLayout, device: torch.device) -> dict:
     per (layout, device) and kept on the layout: the tail's rows and
     columns (block ids under a BSR tail) and its segment-sum plans, the
     BSR tail's run plan (``tail_runs``), the diagonal's storage
-    positions, each group's unit tables, and the pack plans of the SpMV
-    (by vector width; a dense-only view shares its parent's).  A product,
+    positions, each group's unit tables, the pack plans of the SpMV (by
+    vector width; a dense-only view shares its parent's) and the BSR
+    tail's plans (``bsr_tail.TailPlan``, by vector width).  A product,
     a scaling or a new matrix then copies nothing from the host."""
     tables = layout.__dict__.setdefault("_device_tables", {})
     key = str(device)
@@ -359,8 +358,7 @@ def _device_tables(layout: OffsetLayout, device: torch.device) -> dict:
         def dev(a):
             return torch.as_tensor(np.asarray(a, np.int64), device=device)
         parent = layout.__dict__.get("_dense_parent")
-        run_start, run_row = (tail_runs(layout)[:2] if layout.blk_b
-                              else ((), ()))
+        run_start, run_row = tail_runs(layout) if layout.blk_b else ((), ())
         tables[key] = {
             "coo_rows": dev(layout.coo_rows),
             "coo_cols": dev(layout.coo_cols),
@@ -370,7 +368,7 @@ def _device_tables(layout: OffsetLayout, device: torch.device) -> dict:
             "pbs": [dev([pb for _pd, pb in g.units])
                     for g in layout.pallas_groups],
             "run_start": dev(run_start), "run_row": dev(run_row),
-            "tail_plans": {},
+            "tail_plans": {}, "tail_pack_plans": {},
             "pack_plans": ({} if parent is None else
                            _device_tables(parent, device)["pack_plans"])}
     return tables[key]
@@ -381,8 +379,9 @@ class OffsetMatrix:
     """Square sparse matrix in block-offset storage.
 
     ``mv`` runs on the packed structural values of each dense group
-    (``offset_spmv.PackPlan``), gathered from ``vals`` at the matrix's
-    first product and kept in ``_packed``.  That copy stays valid because
+    (``offset_spmv.PackPlan``) and of a BSR tail (``bsr_tail.TailPlan``),
+    gathered from ``vals`` at the matrix's first product and kept in
+    ``_packed``.  That copy stays valid because
     no code of the port changes ``vals`` in place after ``from_values``:
     every assembly, scaling and cast makes a new matrix."""
     vals: torch.Tensor           # [n_storage]
@@ -450,6 +449,27 @@ class OffsetMatrix:
                 self.vals[g.base:g.base + n_slab], self.pack_plans()[i])
         return self._packed[i]
 
+    def tail_plan(self, vec: int = None):
+        """The BSR tail's ``bsr_tail.TailPlan`` for vals' device and float
+        width (or ``vec`` slots per load: the two-float product takes the
+        float64 plan), built from ``structural_mask`` once per layout,
+        device and width."""
+        vec = vec or offset_spmv.VEC_BYTES // self.vals.element_size()
+        plans = self._tables()["tail_pack_plans"]
+        if vec not in plans:
+            plans[vec] = bsr_tail.build_tail_plan(
+                self.layout, self.structural_mask()[self.layout.n_dense:],
+                vec)
+        return plans[vec]
+
+    def packed_tail(self) -> torch.Tensor:
+        """The BSR tail's structural values, gathered through its tail
+        plan at the first call and kept."""
+        if "tail" not in self._packed:
+            self._packed["tail"] = offset_spmv.pack(
+                self.vals[self.layout.n_dense:], self.tail_plan())
+        return self._packed["tail"]
+
     def _tail_blocks(self) -> torch.Tensor:
         """The BSR tail's values as the component-major [b, b, nb] view."""
         lo = self.layout
@@ -462,9 +482,9 @@ class OffsetMatrix:
     def mv(self, x: torch.Tensor) -> torch.Tensor:
         """y = A x: one offset_spmv.group_mv per dense group on its packed
         values (the hand-written kernel on CUDA, its plain version on the
-        CPU), then the tail: a BSR tail through bsr_tail.tail_mv (its
-        kernel on CUDA) adding into y, a scalar COO tail as a sorted
-        segment sum."""
+        CPU), then the tail: a BSR tail through bsr_tail.tail_mv on its
+        packed values (its kernel on CUDA) adding into y, a scalar COO
+        tail as a sorted segment sum."""
         lo = self.layout
         covered = sum(g.n_vars * g.n_cp for g in lo.pallas_groups)
         y = (torch.empty if covered == lo.n else torch.zeros)(
@@ -477,9 +497,7 @@ class OffsetMatrix:
                                  x[sl].view(grp.n_vars, grp.n_cp), plans[i],
                                  out=y[sl].view(grp.n_vars, grp.n_cp))
         if lo.blk_b:
-            t = self._tables()
-            bsr_tail.tail_mv(self.vals[lo.n_dense:], x, y, self.coo_cols,
-                             t["run_start"], t["run_row"], lo.blk_b)
+            bsr_tail.tail_mv(self.packed_tail(), x, y, self.tail_plan())
         elif lo.n_coo:
             y = y + sorted_segment_sum(
                 self.vals[lo.n_dense:] * x[self.coo_cols],

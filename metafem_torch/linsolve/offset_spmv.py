@@ -282,6 +282,48 @@ def _code_lists(K: torch.Tensor, vec: int) -> tuple:
     return lst, codes.reshape(-1), length.to(torch.int32), words
 
 
+def slice_rows(order: torch.Tensor, Ep: torch.Tensor, vec: int) -> tuple:
+    """Cut rows into slices of SLICE rows, one warp each, and order the
+    slices by their longest row (stable), as the jagged-diagonal layout
+    wants.  ``order``: int64, the rows in their sorted order (a
+    permutation of the row ids); ``Ep``: each row's slot count by row id,
+    a multiple of ``vec``.  Returns (perm, ptr_host): perm, int64
+    [n_slices*SLICE], the row id of each packed row q = slice*32 + lane
+    (-1 for the lanes that pad the last slice); ptr_host, the first slot
+    of each slot group m (``vec`` slots of every slice that reaches m,
+    slice by slice) and the packed length last."""
+    dev = order.device
+    n_slices = -(-order.numel() // SLICE)
+    fill = n_slices * SLICE - order.numel()
+    order = torch.cat([order, torch.full((fill,), -1, dtype=torch.int64,
+                                         device=dev)])
+    Ep_max = torch.where(order >= 0, Ep[order.clamp(min=0)],
+                         0).view(n_slices, SLICE).amax(1)
+    sl = torch.argsort(-Ep_max, stable=True)
+    perm = order.view(n_slices, SLICE)[sl].reshape(-1)
+    n_grp = (Ep_max[sl] // vec).cpu()
+    M = int(n_grp[0]) if n_slices else 0
+    cnt = torch.bincount(n_grp, minlength=M + 1)
+    n_act = n_slices - torch.cumsum(cnt, 0)[:M]   # slices reaching group m
+    ptr_host = [0]
+    for a in n_act.tolist():
+        ptr_host.append(ptr_host[-1] + a * SLICE * vec)
+    return perm, tuple(ptr_host)
+
+
+def slot_sums(prod: torch.Tensor, ptr_host: tuple, vec: int,
+              n_q: int) -> torch.Tensor:
+    """Each packed row's sum of the slot values ``prod`` (over a
+    jagged-diagonal layout of ``n_q`` packed rows), slot by slot in the
+    row's order: slot group m, then its ``vec`` slots."""
+    acc = torch.zeros(n_q, dtype=prod.dtype, device=prod.device)
+    for m in range(len(ptr_host) - 1):
+        blk = prod[ptr_host[m]:ptr_host[m + 1]].view(-1, vec)
+        for t in range(vec):
+            acc[:blk.shape[0]] += blk[:, t]
+    return acc
+
+
 def build_pack_plan(keep: torch.Tensor, group, vec: int) -> PackPlan:
     """The pack plan of one dense group on keep's device.  ``keep``: bool
     [G, n_off, n_cp], True at the structural entries of the group's
@@ -330,37 +372,20 @@ def build_pack_plan(keep: torch.Tensor, group, vec: int) -> PackPlan:
     L_nat = K.sum(1)
     del K
     n_rows = C * n_cp
-    E = _popcount(mask_nat, maxu) * L_nat
+    n_units = _popcount(mask_nat, maxu)
+    E = n_units * L_nat
     e_top = int(E.max()) + 1 if n_rows else 1
     ids = torch.arange(n_rows, device=dev)
     # within a window: longest rows first, rows of one code list together
     order = torch.argsort(((ids // WINDOW) * e_top + (e_top - 1 - E))
                           * list_len.numel() + lst_nat, stable=True)
     del ids, E
-    n_slices = -(-n_rows // SLICE)
-    fill = n_slices * SLICE - n_rows
-    order = torch.cat([order, torch.full((fill,), -1, dtype=i64,
-                                         device=dev)])
-
-    def take(a):                                  # padding lanes: 0
-        return torch.where(order >= 0, a[order.clamp(min=0)], 0)
-    L_s, mask_s, lst_s = take(L_nat), take(mask_nat), take(lst_nat)
-    Ep = _popcount(mask_s, maxu) * ((L_s + vec - 1) // vec * vec)
-    Ep_max = Ep.view(n_slices, SLICE).amax(1)
-    sl = torch.argsort(-Ep_max, stable=True)
-
-    def by_slice(a):
-        return a.view(n_slices, SLICE)[sl].reshape(-1)
-    rows = by_slice(order)
-    meta = by_slice(mask_s | (lst_s << 8))
-    n_grp = (Ep_max[sl] // vec).cpu()
-    del order, L_s, mask_s, lst_s, Ep, Ep_max, sl, L_nat, mask_nat, lst_nat
-    M = int(n_grp[0]) if n_slices else 0
-    cnt = torch.bincount(n_grp, minlength=M + 1)
-    n_act = n_slices - torch.cumsum(cnt, 0)[:M]   # slices reaching group m
-    ptr_host = [0]
-    for a in n_act.tolist():
-        ptr_host.append(ptr_host[-1] + a * SLICE * vec)
+    rows, ptr_host = slice_rows(
+        order, n_units * ((L_nat + vec - 1) // vec * vec), vec)
+    meta = torch.where(rows >= 0,
+                       (mask_nat | (lst_nat << 8))[rows.clamp(min=0)], 0)
+    del order, n_units, L_nat, mask_nat, lst_nat
+    n_slices, M = rows.numel() // SLICE, len(ptr_host) - 1
     chan_pb = torch.zeros((C, maxu), dtype=torch.int32)
     chan_unit = torch.zeros((C, maxu), dtype=i64)
     for pd, units in enumerate(chan):
@@ -369,7 +394,7 @@ def build_pack_plan(keep: torch.Tensor, group, vec: int) -> PackPlan:
             chan_unit[pd, i] = g
     plan = PackPlan(
         group=group, vec=vec, n_slices=n_slices, n_groups=M, maxu=maxu,
-        words=words, ptr_host=tuple(ptr_host), rows=rows.to(torch.int32),
+        words=words, ptr_host=ptr_host, rows=rows.to(torch.int32),
         meta=meta.to(torch.int32), codes=codes, list_len=list_len,
         ptr=torch.tensor(ptr_host, dtype=i64, device=dev),
         dk=torch.tensor(group.offsets, dtype=torch.int32, device=dev),
@@ -430,15 +455,8 @@ def group_mv_packed_plain(packed: torch.Tensor, xw: torch.Tensor,
     """Plain PyTorch version of the kernel over the same plan: the
     products of every packed slot, then, slot by slot, each row's sum in
     the row's order (the products of padding slots are zeros)."""
-    v = plan.vec
     prod = packed * xw.reshape(-1)[packed_columns(plan)]
-    acc = torch.zeros(plan.rows.numel(), dtype=prod.dtype,
-                      device=prod.device)
-    p = plan.ptr_host
-    for m in range(plan.n_groups):
-        blk = prod[p[m]:p[m + 1]].view(-1, v)
-        for t in range(v):
-            acc[:blk.shape[0]] += blk[:, t]
+    acc = slot_sums(prod, plan.ptr_host, plan.vec, plan.rows.numel())
     rows = plan.rows.long()
     real = rows >= 0
     out.view(-1)[rows[real]] = acc[real]

@@ -23,10 +23,10 @@ two-float SpMV (``csrc/offset_spmv.cu``) writes the same transforms
 with ``__fadd_rn``/``__fmul_rn``, which nvcc never contracts.
 
 ``df_offset_mv`` runs each dense group through
-``offset_spmv.group_mv_df``: the hand-written kernel on a CUDA tensor,
-its plain version on a CPU tensor.  A BSR tail (unstructured meshes)
-runs as eager two-float PyTorch ops (``_df_bsr_tail_mv``, the
-reference's formula); it has no kernel yet.
+``offset_spmv.group_mv_df`` and a BSR tail (unstructured meshes) through
+``bsr_tail.tail_mv_df``: the hand-written kernels on a CUDA tensor,
+their plain versions on a CPU tensor.  The CUDA kernel of the two-float
+tail (``csrc/bsr_tail.cu``) follows the same rules.
 """
 
 from __future__ import annotations
@@ -197,43 +197,24 @@ def df_dot2(pairs) -> DF:
     return df_normalize(s, c)
 
 
-def df_segsum_sorted(acc: DF, rows: torch.Tensor, n_levels: int) -> DF:
-    """Segmented sum over SORTED segment ids by strided doubling
-    (Hillis-Steele): after level L, acc[i] holds the sum of the original
-    values in [i, min(run end, i + 2^L)).  Each level is one masked
-    df_add over the last axis, so the run sums land at the run starts.
-    ``rows``: the sorted ids along the last axis."""
-    nb = acc.hi.shape[-1]
-    lead = acc.hi.shape[:-1]
-    for lvl in range(n_levels):
-        s = 1 << lvl
-        if s >= nb:
-            break
-        same = rows[s:] == rows[:-s]
-        mask = torch.cat([same, torch.zeros(s, dtype=torch.bool,
-                                            device=same.device)]
-                         ).to(acc.hi.dtype)
-        z = torch.zeros(lead + (s,), dtype=acc.hi.dtype,
-                        device=acc.hi.device)
-        sh_hi = torch.cat([acc.hi[..., s:], z], dim=-1)
-        sh_lo = torch.cat([acc.lo[..., s:], z], dim=-1)
-        acc = df_add(acc, DF(sh_hi * mask, sh_lo * mask))
-    return acc
-
-
 def df_pack(vals: DF, layout) -> list:
     """Per dense group of ``layout``, the structural values of the pair
     ``vals`` packed as (hi, lo) slots (``offset_spmv.pack_df``) over the
-    group's float64 pack plan: gathered once per matrix, then passed to
-    every ``df_offset_mv`` of it."""
+    group's float64 pack plan, and last, where the layout has a BSR
+    tail, the tail's pair packed over its float64 tail plan: gathered
+    once per matrix, then passed to every ``df_offset_mv`` of it."""
     from . import offset_spmv
     from .block_offset import OffsetMatrix
-    plans = OffsetMatrix.from_values(vals.hi, layout).pack_plans(
-        vec=offset_spmv.DF_VEC)
+    A = OffsetMatrix.from_values(vals.hi, layout)
+    plans = A.pack_plans(vec=offset_spmv.DF_VEC)
     out = []
     for grp, plan in zip(layout.pallas_groups, plans):
         sl = slice(grp.base, grp.base + len(grp.units) * grp.n_off * grp.n_cp)
         out.append(offset_spmv.pack_df(vals.hi[sl], vals.lo[sl], plan))
+    if layout.blk_b:
+        out.append(offset_spmv.pack_df(
+            vals.hi[layout.n_dense:], vals.lo[layout.n_dense:],
+            A.tail_plan(vec=offset_spmv.DF_VEC)))
     return out
 
 
@@ -242,11 +223,13 @@ def df_offset_mv(vals: DF, layout, x: DF,
     """y = A @ x with the matrix values and the vector as DF pairs, the
     refined residual's product: each dense group through
     ``offset_spmv.group_mv_df`` (per-unit compensated sums over the
-    offsets, in the reference's order), the scalar COO tail as one
-    float64 sorted segment sum over the layout's device tables, split
-    back and df_added, a BSR tail through ``_df_bsr_tail_mv``.
-    ``packed``: the pair's ``df_pack`` (packed here when None)."""
-    from . import offset_spmv
+    offsets, in the reference's order), a BSR tail through
+    ``bsr_tail.tail_mv_df`` (per row a compensated sum over its packed
+    entries, df_added into y), the scalar COO tail as one float64 sorted
+    segment sum over the layout's device tables, split back and
+    df_added.  ``packed``: the pair's ``df_pack`` (packed here when
+    None)."""
+    from . import bsr_tail, offset_spmv
     from .block_offset import OffsetMatrix
     A = OffsetMatrix.from_values(vals.hi, layout)
     plans = A.pack_plans(vec=offset_spmv.DF_VEC)
@@ -265,7 +248,8 @@ def df_offset_mv(vals: DF, layout, x: DF,
                                 out_lo=y_lo[sl].view(shape))
     y = DF(y_hi, y_lo)
     if layout.blk_b:
-        y = df_add(y, _df_bsr_tail_mv(vals, layout, x, A))
+        bsr_tail.tail_mv_df(packed[-1], x.hi, x.lo, y_hi, y_lo,
+                            A.tail_plan(vec=offset_spmv.DF_VEC))
     elif layout.n_coo:
         # the (small) COO tail in float64; lattice meshes have none
         from .block_offset import sorted_segment_sum
@@ -276,36 +260,3 @@ def df_offset_mv(vals: DF, layout, x: DF,
         t64 = sorted_segment_sum(cv * xv, A._tail_plan("rows"), layout.n)
         y = df_add(y, df_from_f64(t64))
     return y
-
-
-def _df_bsr_tail_mv(vals: DF, layout, x: DF, A) -> DF:
-    """The BSR tail's two-float product (the reference's BSR branch of
-    ``df_offset_mv``), in plain PyTorch on the tail's component-major
-    [b, b, nb] view: per block and row i the b two-float products of
-    row i summed with df_add in column order, then the blocks of each
-    run summed by the error-free segmented tree (``df_segsum_sorted``)
-    over the sorted block rows, each run's sum read at its start, and
-    the run sums written to their block rows through float64 and split
-    back.  ``A``: an OffsetMatrix of ``layout`` on x's device (its
-    device tables)."""
-    from .block_offset import tail_runs
-    b, nb, nbr = layout.blk_b, layout.n_coo, layout.n_block_rows
-    t = A._tables()
-    Bh = vals.hi[layout.n_dense:].view(b, b, nb)
-    Bl = vals.lo[layout.n_dense:].view(b, b, nb)
-    xg_hi = A._blocked(x.hi)[A.coo_cols].t()                # [b, nb]
-    xg_lo = A._blocked(x.lo)[A.coo_cols].t()
-    z = torch.zeros((b, nb), dtype=x.hi.dtype, device=x.hi.device)
-    acc = DF(z, z)
-    for j in range(b):
-        p, e = two_prod(Bh[:, j, :], xg_hi[j][None, :])
-        e = e + ((Bh[:, j, :] * xg_lo[j][None, :])
-                 + (Bl[:, j, :] * xg_hi[j][None, :]))
-        acc = df_add(acc, DF(p, e))
-    acc = df_segsum_sorted(acc, A.coo_rows, tail_runs(layout)[2])
-    starts = t["run_start"][:-1]
-    f64 = torch.float64
-    runs = acc.hi[:, starts].to(f64) + acc.lo[:, starts].to(f64)
-    t64 = torch.zeros((nbr, b), dtype=f64, device=x.hi.device)
-    t64[t["run_row"]] = runs.t()
-    return df_from_f64(t64.reshape(-1)[:layout.n])

@@ -1006,8 +1006,10 @@ class FEM_Domain:
     def _refined_to_save(self, ref: dict) -> dict:
         """The refined record with the sentinels of save_freezes in place
         of the state's volume tables and the float64 fields, and without
-        the two-float mode's packed pairs."""
-        ref = {k: v for k, v in ref.items() if k != "A_packed"}
+        what the steps derive from the freeze (the float64 residual's
+        matrices, the two-float mode's packed pairs)."""
+        ref = {k: v for k, v in ref.items()
+               if k not in ("A_mats", "A_packed")}
         if ref.get("wp") is not None:
             wp = []
             for w, wps in zip(ref["wp"], self.state["wp"]):

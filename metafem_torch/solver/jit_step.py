@@ -360,14 +360,18 @@ def make_refined_step(domain, sv_func: Callable = krylov.bicgstab,
         K_params64_t = device_constant(K_params64, f64, dev)
 
         ref = state["refined"]
-        A64, b64 = ref["A"], ref["b"]
+        if "A_mats" not in ref:
+            # the frozen A_td as matrices kept in the freeze's record, so
+            # that each packs its values (dense groups and tail) once
+            ref["A_mats"] = [A_of(a) for a in ref["A"]]
+        A64, b64 = ref["A_mats"], ref["b"]
         K_lin = combine_klin(state, K_params64.astype(s_np))
 
         def residual_and_knl(dx, with_grad=True):
             xs = x_star_of(x, dx, alpha)                        # f64
             r = b64
             for td in range(levels):
-                r = r + A_of(A64[td]).mv(xs[td])
+                r = r + A64[td].mv(xs[td])
             st64 = {**state, "wp": ref["wp"], "x_star": xs,
                     "K_params": K_params64_t, "t": float(t), "dt": dt64}
             r_nl, K_nl = run_phase(st64, "nonaff_nl")

@@ -25,6 +25,7 @@ of the same physics is the port's own oracle.  Tolerances:
 - a converged Newton step (residual below 1e-10) to 1e-6 in T.
 """
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -170,12 +171,11 @@ def test_layout_matches_reference(name):
         assert getattr(lo, f) == getattr(ref, f), f
     for f in ("coo_rows", "coo_cols", "storage_of_slot", "diag_storage"):
         np.testing.assert_array_equal(getattr(lo, f), getattr(ref, f))
-    run_start, run_row, levels = tail_runs(lo)
-    starts, rows, ref_levels = ref_tail_runs(ref)
+    run_start, run_row = tail_runs(lo)
+    starts, rows, _ = ref_tail_runs(ref)
     np.testing.assert_array_equal(run_start[:-1], starts)
     assert run_start[-1] == lo.n_coo
     np.testing.assert_array_equal(run_row, rows)
-    assert levels == ref_levels
 
 
 @pytest.mark.parametrize("name", sorted(MESHES))
@@ -230,10 +230,11 @@ def test_tail_plain_matches_reference_blk_tail_mv(name):
                                    A.coo_cols, t["run_start"], t["run_row"],
                                    lo.blk_b)
     _close(y, A_ref._blk_tail_mv(jnp.asarray(x_np)), 1e-12)
-    # the wrapper on CPU tensors is the plain version, adding into y
+    # the wrapper on CPU tensors is the packed plain version, adding
+    # into y
     y0 = torch.tensor(np.random.default_rng(4).standard_normal(A.n))
-    y1 = bsr_tail.tail_mv(A.vals[lo.n_dense:], torch.tensor(x_np), y0.clone(),
-                          A.coo_cols, t["run_start"], t["run_row"], lo.blk_b)
+    y1 = bsr_tail.tail_mv(A.packed_tail(), torch.tensor(x_np), y0.clone(),
+                          A.tail_plan())
     _close(y1 - y0, y.numpy(), 1e-12)
 
 
@@ -279,12 +280,17 @@ def test_cuda_typed_tail_without_card_raises():
     from torch._subclasses.fake_tensor import FakeTensorMode
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the kernel would launch")
+    A, _, _, _, _ = _tangents("tri2d")
+    plan = A.tail_plan()
     bsr_tail.reset_launches()
     with FakeTensorMode(allow_non_fake_inputs=True):
         def cu(shape, dtype=torch.float64):
             return torch.empty(shape, dtype=dtype, device="cuda")
-        i64 = torch.int64
+        on_card = dataclasses.replace(
+            plan, rows=cu(plan.rows.shape, torch.int32),
+            cols=cu(plan.cols.shape, torch.int32),
+            ptr=cu(plan.ptr.shape, torch.int64))
         with pytest.raises(RuntimeError):
-            bsr_tail.tail_mv(cu((64 * 2,)), cu((16,)), cu((16,)),
-                             cu((2,), i64), cu((2,), i64), cu((1,), i64), 8)
+            bsr_tail.tail_mv(cu((plan.n_packed,)), cu((A.n,)), cu((A.n,)),
+                             on_card)
     assert bsr_tail.tail_mv.launches == 0

@@ -225,22 +225,6 @@ def test_df_dot2_matches_reference():
     assert np.all(np.abs(_f64(got) - exact) <= 2.0 ** -44 * m)
 
 
-def test_df_segsum_sorted_matches_reference():
-    rng = np.random.default_rng(9)
-    rows = np.sort(rng.integers(0, 300, 2048))
-    hi, lo, v64 = _df_vec(11, 2048, 3)
-    hi2, lo2 = np.stack([hi, hi[::-1]]), np.stack([lo, lo[::-1]])
-    got = tf.df_segsum_sorted(_pair(hi2, lo2), torch.as_tensor(rows), 11)
-    want = rtf.df_segsum_sorted(_pair(hi2, lo2, False), jnp.asarray(rows),
-                                11)
-    starts = np.flatnonzero(np.r_[True, rows[1:] != rows[:-1]])
-    exact = np.add.reduceat(v64, starts)
-    m = np.add.reduceat(np.abs(v64), starts)
-    g, w = _f64(got), _f64(want)
-    assert np.all(np.abs(g - w) <= 2.0 ** -46 * np.abs(w).max())
-    assert np.all(np.abs(g[0, starts] - exact) <= 2.0 ** -45 * m)
-
-
 # ---------------------------------------------------------------------------
 # the two-float SpMV
 # ---------------------------------------------------------------------------
