@@ -37,7 +37,8 @@ from the root of the repository.  Phases, one line or more each:
    and launches of the two-float and f32 kernels, a bitwise repeat, its
    x against the f64 step's and its root's f64-mode residual, and the
    two-float SpMV kernel on A_td against its plain version and the f64
-   kernel, timed beside them, CSR ``torch.mv`` and its bound; after
+   kernel, timed beside them, CSR ``torch.mv`` and its bound, with the
+   kernel's registers, spills and resident warps per SM; after
    the timed step, ``save_freezes`` of the cold domain;
 7. persist (``phase_persist``): a fresh flagship domain warm-started
    from those freezes (``bench.prepare`` with its freeze cache) runs the
@@ -100,7 +101,8 @@ from the root of the repository.  Phases, one line or more each:
     f64 tail kernel, CSR f64 and its bounds; the two-float dense-group
     kernel on the same A_td's dense group (one C=1 group of 59 offsets,
     Morton numbering) within 2^-45 |A||x| per row of its plain version
-    and of the f64 packed kernel, timed beside them and CSR f64; the
+    and of the f64 packed kernel, timed beside them and CSR f64, each
+    two-float kernel with its registers and warps per SM; the
     sparse smoother with
     the exact inner operator (its root against the full smoother's) and
     with the sparsified one (reported); one ``update_one_step`` with
@@ -429,7 +431,7 @@ def _df_spmv(ref: dict, layout, rng, device, label: str, tag: str) -> dict:
     float64 on the same entries, and the bound: the structural entries'
     8 bytes each, x's and y's pairs once, at the card's memory rate, or
     DF_OPS_PER_ENTRY float32 operations per entry, whichever is
-    longer."""
+    longer; and the kernel's registers and resident warps per SM."""
     from metafem_torch.linsolve import offset_spmv
     from metafem_torch.linsolve import twofloat as tf
     from metafem_torch.linsolve.block_offset import OffsetMatrix
@@ -499,6 +501,7 @@ def _df_spmv(ref: dict, layout, rng, device, label: str, tag: str) -> dict:
     t_bytes = (8 * nnz + 2 * 8 * layout.n) / rate
     t_ops = DF_OPS_PER_ENTRY * nnz / PEAK_FLOPS["float32"]
     bound_ms = 1e3 * max(t_bytes, t_ops)
+    occ = offset_spmv.df_occupancy(plan)
     print(f"[{tag}] offset_spmv_packed_df {label} ({ref['A_hi'].shape[0]} "
           f"time level(s), G={len(grp.units)}, n_off={grp.n_off}, C={C}, "
           f"n_cp={n_cp}, {nnz} structural entries): worst |dy| / (2^-45 "
@@ -509,14 +512,16 @@ def _df_spmv(ref: dict, layout, rng, device, label: str, tag: str) -> dict:
           f"{plain_ms:.4f} ms; float64 packed kernel {f64_ms:.4f} ms; CSR "
           f"torch.mv float64 {csr_ms:.4f} ms; bound {bound_ms:.4f} ms "
           f"({'bytes' if t_bytes >= t_ops else 'operations'}; "
-          f"{100 * bound_ms / ms:.0f}% of it)")
+          f"{100 * bound_ms / ms:.0f}% of it); one row per thread, "
+          f"{occ['registers']} registers, {occ['spill_bytes']} B spilled, "
+          f"{occ['warps_per_sm']} warps/SM")
     return {"ms": ms, "cold_ms": cold_ms, "plain_ms": plain_ms,
             "f64_kernel_ms": f64_ms, "csr_f64_ms": csr_ms,
             "bound_ms": bound_ms,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "nnz": nnz, "levels": int(ref["A_hi"].shape[0]),
             "max_abs_err": max_abs, "worst_vs_plain": worst_plain,
-            "worst_vs_f64_kernel": worst_f64}
+            "worst_vs_f64_kernel": worst_f64, **occ}
 
 
 def phase_slice(device, nel=NEL) -> dict:
@@ -2106,7 +2111,8 @@ def _df_tail_numbers(ref: dict, layout, rng, device) -> dict:
     PyTorch call computes a two-float product), against the structural
     bound (8 bytes per entry, x's and y's pairs once, or
     DF_OPS_PER_ENTRY float32 operations per entry) and the packed bound
-    (``TailPlan.bytes_per_product(8)``)."""
+    (``TailPlan.bytes_per_product(8)``); and the kernel's registers and
+    resident warps per SM."""
     from metafem_torch.linsolve import bsr_tail, offset_spmv
     from metafem_torch.linsolve import twofloat as tf
     from metafem_torch.linsolve.block_offset import OffsetMatrix
@@ -2165,7 +2171,7 @@ def _df_tail_numbers(ref: dict, layout, rng, device) -> dict:
            "nnz": nnz, "n_packed": plan.n_packed,
            "padding_share": plan.padding_share, "max_abs_err": max_abs,
            "bitwise_vs_plain": vs_plain, "bitwise_repeat": repeat,
-           "rel_to_f64_kernel": rel_f64}
+           "rel_to_f64_kernel": rel_f64, **bsr_tail.df_occupancy(plan)}
     print(f"[unstructured] bsr_tail_packed_df A_td ({nnz} structural "
           f"entries, {plan.n_packed} packed slots over the float64 plan): "
           f"against its plain version "
@@ -2178,7 +2184,9 @@ def _df_tail_numbers(ref: dict, layout, rng, device) -> dict:
           f"structural bound {bound_ms:.4f} ms ({res['bound_by']}; "
           f"{100 * bound_ms / ms:.1f}% of it); packed bound "
           f"{packed_bound_ms:.4f} ms ({moved} B per product, "
-          f"{100 * packed_bound_ms / ms:.1f}%)")
+          f"{100 * packed_bound_ms / ms:.1f}%); one row per thread, "
+          f"{res['registers']} registers, {res['spill_bytes']} B spilled, "
+          f"{res['warps_per_sm']} warps/SM")
     if not (vs_plain and repeat and rel_f64 <= 1e-12):
         raise AssertionError(f"two-float tail kernel: plain {vs_plain}, "
                              f"repeat {repeat}, f64 {rel_f64}")
@@ -2770,6 +2778,9 @@ def main() -> None:
         "csr_f64_ms": dfs["csr_f64_ms"], "cold_ms": dfs["cold_ms"],
         "nnz": dfs["nnz"], "worst_vs_plain": dfs["worst_vs_plain"],
         "worst_vs_f64_kernel": dfs["worst_vs_f64_kernel"],
+        # the kernel's registers and occupancy
+        **{k: dfs[k] for k in ("registers", "spill_bytes", "blocks_per_sm",
+                               "warps_per_sm")},
         "launches_per_step": [t["df_launches"]
                               for t in flag["df32"]["trials"]],
         "df32_flagship": {k: v for k, v in flag["df32"].items()

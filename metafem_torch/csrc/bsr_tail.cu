@@ -50,11 +50,23 @@
 // and the kernel reads the bytes the float64 one reads; x's words come
 // from two vectors.  Each row sums its entries into a fresh pair with
 // df_add in the plan's order, then df_adds the row's pair into (y_hi,
-// y_lo).  The error-free transforms must not be contracted, so every
-// add, subtract and multiply in them is __fadd_rn/__fsub_rn/__fmul_rn,
-// which nvcc never fuses into an FMA, and two_prod's error is fmaf(a, b,
-// -a*b), the exact error that the Dekker split computes.  The float
-// kernels keep nvcc's contraction: no file-wide --fmad=false.
+// y_lo).  Each entry is 17 float operations, ~8 of them on the running
+// pair, behind a column id and two gathers of x's words: a thread that
+// waits on each slot group's x before its df_adds is latency-bound.
+// Design: one thread per packed row, as the float kernels; per pass it
+// takes the row's next 4 slot groups: first their values and column
+// ids, then their x pairs, all in flight together, then their df_adds
+// in the plan's order, so its bits are those of a walk one group at a
+// time.  __launch_bounds__ asks for 3 resident blocks (the loads in
+// flight take 74 registers a thread).  Two or four rows per thread
+// (lane l of consecutive slices) were level or slower (PERF.md).  The
+// error-free transforms must not be contracted, so every add, subtract
+// and multiply in them is __fadd_rn/__fsub_rn/__fmul_rn, which nvcc
+// never fuses into an FMA, and two_prod's error is fmaf(a, b, -a*b),
+// the exact error that the Dekker split computes.  The float kernels
+// keep nvcc's contraction: no file-wide --fmad=false.
+// bsr_tail_df_occupancy reports the kernel's registers, spills and
+// resident warps per SM.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -168,7 +180,13 @@ __device__ __forceinline__ void df_entry(float& rh, float& rl, float vh,
   df_add(rh, rl, p, e);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// slot groups of a row whose loads are issued together ahead of their
+// df_adds, and the least resident blocks of kThreads that
+// __launch_bounds__ asks the register allocator to leave room for
+constexpr int kAhead = 4;
+constexpr int kDfBlocks = 3;
+
+__global__ void __launch_bounds__(kThreads, kDfBlocks)
 bsr_tail_packed_df_kernel(const float4* __restrict__ vals,
                           const int32_t* __restrict__ cols,
                           const float* __restrict__ x_hi,
@@ -185,16 +203,41 @@ bsr_tail_packed_df_kernel(const float4* __restrict__ vals,
   if (q >= n_slices * kSlice) return;
   const int32_t row = rows[q];
   if (row < 0) return;
+  // slot group m: slots s = ptr[m] + 2q, s + 1, i.e. float4 s/2 of the
+  // values and int2 s/2 of the column ids (s is even)
+  const int2* cols2 = reinterpret_cast<const int2*>(cols);
   float rh = 0.f, rl = 0.f;
-#pragma unroll 4
-  for (int m = 0; m < ng; ++m) {
-    const int64_t s = s_ptr[m] + q * kV;
-    // slots s, s + 1 = float4 s/2 (s is even: ptr[m] and q*2 are)
-    const float4 v = __ldg(vals + s / kV);
-    const int2 c = __ldg(reinterpret_cast<const int2*>(cols + s));
-    const int64_t c0 = c.x, c1 = c.y;
-    df_entry(rh, rl, v.x, v.y, __ldg(x_hi + c0), __ldg(x_lo + c0));
-    df_entry(rh, rl, v.z, v.w, __ldg(x_hi + c1), __ldg(x_lo + c1));
+  // kAhead slot groups per pass: their values and column ids, then
+  // their x pairs, are all in flight before the first df_add
+  for (int m = 0; m < ng; m += kAhead) {
+    float4 v[kAhead];
+    int2 c[kAhead];
+#pragma unroll
+    for (int k = 0; k < kAhead; ++k) {
+      if (m + k < ng) {
+        v[k] = __ldg(vals + s_ptr[m + k] / kV + q);
+        c[k] = __ldg(cols2 + s_ptr[m + k] / kV + q);
+      }
+    }
+    float xh0[kAhead], xl0[kAhead], xh1[kAhead], xl1[kAhead];
+#pragma unroll
+    for (int k = 0; k < kAhead; ++k) {
+      if (m + k < ng) {
+        const int64_t c0 = c[k].x, c1 = c[k].y;
+        xh0[k] = __ldg(x_hi + c0);
+        xl0[k] = __ldg(x_lo + c0);
+        xh1[k] = __ldg(x_hi + c1);
+        xl1[k] = __ldg(x_lo + c1);
+      }
+    }
+    // the row's entries in the plan's order
+#pragma unroll
+    for (int k = 0; k < kAhead; ++k) {
+      if (m + k < ng) {
+        df_entry(rh, rl, v[k].x, v[k].y, xh0[k], xl0[k]);
+        df_entry(rh, rl, v[k].z, v[k].w, xh1[k], xl1[k]);
+      }
+    }
   }
   float yh = y_hi[row], yl = y_lo[row];
   df_add(yh, yl, rh, rl);
@@ -245,6 +288,28 @@ int launch(const void* vals, const void* cols, const void* x, void* y,
 BSR_TAIL_PACKED(bsr_tail_packed_f64, double)
 BSR_TAIL_PACKED(bsr_tail_packed_f32, float)
 
+namespace {
+
+// registers and local (spilled) bytes per thread of `kernel`, and the
+// blocks and warps of kThreads that fit on one SM with `smem` bytes each
+template <typename K>
+int occupancy(K kernel, size_t smem, int* regs, int* local_bytes,
+              int* blocks, int* warps) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *regs = attr.numRegs;
+  *local_bytes = static_cast<int>(attr.localSizeBytes);
+  err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
+                                                      kThreads, smem);
+  *warps = *blocks * kThreads / 32;
+  return static_cast<int>(err);
+}
+
+}  // namespace
+
 extern "C" int bsr_tail_packed_df(const void* vals, const void* cols,
                                   const void* x_hi, const void* x_lo,
                                   void* y_hi, void* y_lo, const void* rows,
@@ -265,4 +330,14 @@ extern "C" int bsr_tail_packed_df(const void* vals, const void* cols,
       static_cast<const int32_t*>(rows), static_cast<const int64_t*>(ptr),
       n_slices, n_groups);
   return static_cast<int>(cudaGetLastError());
+}
+
+// registers, spilled bytes, resident blocks and warps per SM of the
+// two-float kernel, with the shared ptr of one plan
+extern "C" int bsr_tail_df_occupancy(int64_t n_groups, int* regs,
+                                     int* local_bytes, int* blocks,
+                                     int* warps) {
+  return occupancy(bsr_tail_packed_df_kernel,
+                   static_cast<size_t>(n_groups + 1) * sizeof(int64_t), regs,
+                   local_bytes, blocks, warps);
 }

@@ -47,13 +47,30 @@
 // vectors.  Per unit a fresh pair sums the unit's entries with df_add
 // (two_sum, then fast_two_sum); at the unit's end the unit's pair is
 // df_added into the row's, and the row writes y_hi and y_lo once: the
-// reference's (unit, offset) order, no atomics, bitwise repeats.  The
-// error-free transforms must not be contracted, so every add, subtract
-// and multiply in them is __fadd_rn/__fsub_rn/__fmul_rn, which nvcc
-// never fuses into an FMA, and two_prod's error is fmaf(a, b, -a*b),
-// the exact error that the reference's Dekker split computes.  The
-// file's other kernels keep nvcc's contraction (see above): no
-// file-wide --fmad=false.
+// reference's (unit, offset) order, no atomics, bitwise repeats.
+// Bound: memory, as the float64 kernel; but each entry is 17 float
+// operations of which ~8 depend on the running pair, and x's two words
+// are two gathers, which on an unstructured (Morton) group land far
+// apart: a thread that waits on each slot group's x before its df_adds
+// is latency-bound.  Design: one thread per packed row, as the float64
+// kernel; per pass it takes the row's next 4 slot groups (across unit
+// ends): first their values and code words, then their x pairs, all in
+// flight together, then their df_adds in the row's order, so its bits
+// are those of a walk one group at a time.  two_prod and the cross
+// terms do not wait on the pair.  The loads in flight take 72
+// registers a thread against 40 for a walk one group at a time, so
+// __launch_bounds__ asks for 3 resident blocks (24 warps per SM; a cap
+// of 64 registers spills).  Where x's gathers land far apart (a Morton
+// group) the loads in flight win; on a lattice, whose gathers a warp
+// coalesces, the halved occupancy costs a little (PERF.md).  Two or
+// four rows per thread (lane l of consecutive slices) lost to one.
+// The error-free transforms must not be contracted, so every add,
+// subtract and multiply in them is __fadd_rn/__fsub_rn/__fmul_rn,
+// which nvcc never fuses into an FMA, and two_prod's error is fmaf(a,
+// b, -a*b), the exact error that the reference's Dekker split
+// computes.  The file's other kernels keep nvcc's contraction (see
+// above): no file-wide --fmad=false.  offset_spmv_df_occupancy reports
+// the kernel's registers, spills and resident warps per SM.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -176,7 +193,14 @@ __device__ __forceinline__ void df_entry(float& uh, float& ul, float vh,
   df_add(uh, ul, p, e);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// slot groups of a row whose loads are issued together ahead of their
+// df_adds, and the least resident blocks of kThreads that
+// __launch_bounds__ asks the register allocator to leave room for (at
+// most 80 registers a thread; a cap of 64 spills)
+constexpr int kAhead = 4;
+constexpr int kDfBlocks = 3;
+
+__global__ void __launch_bounds__(kThreads, kDfBlocks)
 offset_spmv_packed_df_kernel(const float4* __restrict__ vals,
                              const float* __restrict__ x_hi,
                              const float* __restrict__ x_lo,
@@ -214,28 +238,69 @@ offset_spmv_packed_df_kernel(const float4* __restrict__ vals,
   const int64_t list = mt >> 8;
   const int L = __ldg(list_len + list);
   const int64_t pd = row / n_cp;
-  const int64_t r = row - pd * n_cp;
-  const int ng = (L + kV - 1) / kV;            // slot groups per unit
+  const int32_t r = static_cast<int32_t>(row - pd * n_cp);
+  const int pb0 = static_cast<int>(pd * maxu);
+  const int ng = max((L + kV - 1) / kV, 1);      // slot groups per unit
+  const int own = __popc(mask) * ((L + kV - 1) / kV);
   const uint32_t* cw = reinterpret_cast<const uint32_t*>(codes)
                        + list * words;
-  float rh = 0.f, rl = 0.f;
-  int m = 0;
-  while (mask) {
-    const int i = __ffs(mask) - 1;
-    mask &= mask - 1;
-    const int64_t xo = static_cast<int64_t>(s_pb[pd * maxu + i]) * n_cp + r;
-    float uh = 0.f, ul = 0.f;
-    for (int cg = 0; cg < ng; ++cg, ++m) {
-      // slot group m of row q: slots ptr[m] + 2q, 2q + 1 = float4 ptr[m]/2 + q
-      const float4 v = __ldg(vals + s_ptr[m] / kV + q);
-      const int c0 = cg * kV;
-      const uint32_t w = __ldg(cw + (c0 >> 2)) >> ((c0 & 3) * 8);
-      const int64_t a0 = xo + s_dk[w & 0xff];
-      const int64_t a1 = xo + s_dk[(w >> 8) & 0xff];
-      df_entry(uh, ul, v.x, v.y, __ldg(x_hi + a0), __ldg(x_lo + a0));
-      df_entry(uh, ul, v.z, v.w, __ldg(x_hi + a1), __ldg(x_lo + a1));
+  float rh = 0.f, rl = 0.f, uh = 0.f, ul = 0.f;
+  int cg = 0;
+  int32_t xo = 0;
+  // kAhead slot groups per pass (across unit ends): their values and
+  // code words, then their x pairs, are all in flight before the first
+  // df_add
+  for (int m = 0; m < own; m += kAhead) {
+    float4 v[kAhead];
+    uint32_t w[kAhead];
+    int32_t xb[kAhead];        // x index of the group's unit (< 2^31)
+    unsigned last = 0;         // bit k: group m + k ends its unit
+#pragma unroll
+    for (int k = 0; k < kAhead; ++k) {
+      if (m + k < own) {
+        if (cg == 0) {                         // a unit starts
+          const int i = __ffs(mask) - 1;
+          mask &= mask - 1;
+          xo = s_pb[pb0 + i] * static_cast<int32_t>(n_cp) + r;
+        }
+        // slot group m + k: slots ptr[m+k] + 2q, 2q + 1, i.e. float4
+        // ptr[m+k]/2 + q
+        v[k] = __ldg(vals + s_ptr[m + k] / kV + q);
+        const int c0 = cg * kV;
+        w[k] = __ldg(cw + (c0 >> 2)) >> ((c0 & 3) * 8);
+        xb[k] = xo;
+        if (++cg == ng) {
+          cg = 0;
+          last |= 1u << k;
+        }
+      }
     }
-    df_add(rh, rl, uh, ul);
+    float xh0[kAhead], xl0[kAhead], xh1[kAhead], xl1[kAhead];
+#pragma unroll
+    for (int k = 0; k < kAhead; ++k) {
+      if (m + k < own) {
+        const int64_t a0 = static_cast<int64_t>(xb[k]) + s_dk[w[k] & 0xff];
+        const int64_t a1 = static_cast<int64_t>(xb[k])
+                           + s_dk[(w[k] >> 8) & 0xff];
+        xh0[k] = __ldg(x_hi + a0);
+        xl0[k] = __ldg(x_lo + a0);
+        xh1[k] = __ldg(x_hi + a1);
+        xl1[k] = __ldg(x_lo + a1);
+      }
+    }
+    // the row's entries in its (unit, offset) order; a unit's pair is
+    // df_added into the row's at the unit's end
+#pragma unroll
+    for (int k = 0; k < kAhead; ++k) {
+      if (m + k < own) {
+        df_entry(uh, ul, v[k].x, v[k].y, xh0[k], xl0[k]);
+        df_entry(uh, ul, v[k].z, v[k].w, xh1[k], xl1[k]);
+        if (last >> k & 1) {
+          df_add(rh, rl, uh, ul);
+          uh = ul = 0.f;
+        }
+      }
+    }
   }
   y_hi[row] = rh;
   y_lo[row] = rl;
@@ -302,6 +367,28 @@ int launch(const void* vals, const void* x, void* y, const void* rows,
 OFFSET_SPMV_PACKED(offset_spmv_packed_f64, double)
 OFFSET_SPMV_PACKED(offset_spmv_packed_f32, float)
 
+namespace {
+
+// registers and local (spilled) bytes per thread of `kernel`, and the
+// blocks and warps of kThreads that fit on one SM with `smem` bytes each
+template <typename K>
+int occupancy(K kernel, size_t smem, int* regs, int* local_bytes,
+              int* blocks, int* warps) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *regs = attr.numRegs;
+  *local_bytes = static_cast<int>(attr.localSizeBytes);
+  err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
+                                                      kThreads, smem);
+  *warps = *blocks * kThreads / 32;
+  return static_cast<int>(err);
+}
+
+}  // namespace
+
 extern "C" int offset_spmv_packed_df(
     const void* vals, const void* x_hi, const void* x_lo, void* y_hi,
     void* y_lo, const void* rows, const void* meta, const void* codes,
@@ -328,4 +415,15 @@ extern "C" int offset_spmv_packed_df(
       static_cast<const int32_t*>(chan_pb), n_slices, n_groups, n_off,
       maxu, n_vars, n_cp, words);
   return static_cast<int>(cudaGetLastError());
+}
+
+// registers, spilled bytes, resident blocks and warps per SM of the
+// two-float kernel, with its shared tables for one plan
+extern "C" int offset_spmv_df_occupancy(int64_t n_groups, int64_t n_off,
+                                        int64_t maxu, int64_t n_vars,
+                                        int* regs, int* local_bytes,
+                                        int* blocks, int* warps) {
+  return occupancy(offset_spmv_packed_df_kernel,
+                   table_bytes(n_groups, n_off, n_vars, maxu), regs,
+                   local_bytes, blocks, warps);
 }

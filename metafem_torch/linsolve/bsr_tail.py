@@ -69,6 +69,10 @@ def load_library() -> ctypes.CDLL:
             fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int64] * 2
                            + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
+        fn = lib.bsr_tail_df_occupancy
+        fn.argtypes = ([ctypes.c_int64]
+                       + [ctypes.POINTER(ctypes.c_int)] * 4)
+        fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -378,6 +382,13 @@ def tail_mv_df(packed: torch.Tensor, x_hi: torch.Tensor, x_lo: torch.Tensor,
 
 #: two-float kernel launches
 tail_mv_df.launches = 0
+
+
+def df_occupancy(plan: TailPlan) -> dict:
+    """``offset_spmv.occupancy_numbers`` of the two-float tail kernel
+    with the plan's shared ptr."""
+    return offset_spmv.occupancy_numbers(
+        load_library().bsr_tail_df_occupancy, plan.n_groups)
 
 
 def reset_launches() -> None:

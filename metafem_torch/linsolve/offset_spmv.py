@@ -100,6 +100,10 @@ def load_library() -> ctypes.CDLL:
             fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int64] * 7
                            + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
+        fn = lib.offset_spmv_df_occupancy
+        fn.argtypes = ([ctypes.c_int64] * 4
+                       + [ctypes.POINTER(ctypes.c_int)] * 4)
+        fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -671,6 +675,24 @@ def group_mv_df(packed: torch.Tensor, xw_hi: torch.Tensor,
 
 #: two-float kernel launches
 group_mv_df.launches = 0
+
+
+def occupancy_numbers(fn, *args) -> dict:
+    """Registers and spilled bytes per thread of a kernel and its
+    resident blocks and warps per SM, from the library's occupancy query
+    ``fn(*args, &regs, &local_bytes, &blocks, &warps)`` (CUDA only)."""
+    out = [ctypes.c_int(0) for _ in range(4)]
+    _launch_check(fn(*args, *(ctypes.byref(o) for o in out)), "occupancy")
+    return dict(zip(("registers", "spill_bytes", "blocks_per_sm",
+                     "warps_per_sm"), (o.value for o in out)))
+
+
+def df_occupancy(plan: PackPlan) -> dict:
+    """``occupancy_numbers`` of the two-float kernel with the plan's
+    shared tables."""
+    g = plan.group
+    return occupancy_numbers(load_library().offset_spmv_df_occupancy,
+                             plan.n_groups, g.n_off, plan.maxu, g.n_vars)
 
 
 def reset_launches() -> None:

@@ -305,18 +305,31 @@ def _exact_product(A, vals, x):
                      for i in range(A.n)])
 
 
-@pytest.mark.parametrize("case", [0, 1, 2],
+@functools.lru_cache(maxsize=None)
+def _pikachu_tangent():
+    """The unstructured brick's tangent (metafem_torch.examples.
+    pikachu_brick at nel=(4, 3, 3)): one C=1 dense group over a Morton
+    numbering beside its BSR tail, the shape of the df32 unstructured
+    step's dense group."""
+    from metafem_torch.examples import pikachu_brick
+    dom, _ = pikachu_brick.build((4, 3, 3), device="cpu")
+    A = dom.assemble_tangent()[0]
+    assert A.layout.n_coo > 0 and A.layout.blk_b == 8
+    return A
+
+
+@pytest.mark.parametrize("case", [0, 1, 2, "pikachu"],
                          ids=["thermal_C1", "elastic_C2",
-                              "thermo_elastic_C4"])
+                              "thermo_elastic_C4", "pikachu_C1_morton"])
 def test_packed_df_product_equals_unpacked_formula(case):
     """group_mv_df_plain over the packed pair gives the bits of
     group_mv_df_dense (the reference's formula over the block-offset
     storage, stored zeros included); a packed pair over a float32 plan
     is refused."""
-    _, A = _layouts()[case]
+    A = _pikachu_tangent() if case == "pikachu" else _layouts()[case][1]
     (grp,) = A.layout.pallas_groups
     G, n_off, C, n_cp = len(grp.units), grp.n_off, grp.n_vars, grp.n_cp
-    vals, x = _df_inputs(A, 20 + case)
+    vals, x = _df_inputs(A, 20 + (3 if case == "pikachu" else case))
     (plan,) = A.pack_plans(vec=offset_spmv.DF_VEC)
     sl = slice(grp.base, grp.base + G * n_off * n_cp)
     packed = offset_spmv.pack_df(vals.hi[sl], vals.lo[sl], plan)
