@@ -60,9 +60,11 @@ def test_slice_runs_with_jax_and_reference_blocked(tmp_path):
     and the multi-field examples imported, J2's return map run, one
     two-float (df32) refined step of the small flagship, and, with the io
     and utils packages imported, a save and load of its freezes, a
-    checkpoint round trip, a VTK file and the memory report, and the
-    unstructured example (BSR tail, auxmg, refined step) small: lazy
-    imports inside functions are caught too."""
+    checkpoint round trip, a VTK file and the memory report, the
+    unstructured example (BSR tail, auxmg, refined step) small, and,
+    with the four mesh-reading examples imported, the 2D stress plate
+    from an .inp that chip_smoke writes: lazy imports inside functions
+    are caught too."""
     code = (
         "import sys\n"
         "for m in ('jax', 'jaxlib', 'metafem'):\n"
@@ -137,7 +139,13 @@ def test_slice_runs_with_jax_and_reference_blocked(tmp_path):
         "print('PERSIST-OK')\n"
         "from metafem_torch.examples import pikachu_brick\n"
         "pikachu_brick.main(['--cpu', '--nel', '4', '3', '3'])\n"
-        "print('UNSTRUCTURED-OK')\n")
+        "print('UNSTRUCTURED-OK')\n"
+        "from metafem_torch.examples import (cylinder_flow_3d, pikachu_3d,\n"
+        "    stress_concentration_2d, stress_concentration_3d)\n"
+        "plate = os.path.join(d, 'plate.inp')\n"
+        "chip_smoke.write_inp(plate, *chip_smoke.plate_2d(8, 4))\n"
+        "stress_concentration_2d.main(['--cpu', '--mesh', plate])\n"
+        "print('MESH-EXAMPLES-OK')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=300, env=env, cwd=REPO)
@@ -148,6 +156,7 @@ def test_slice_runs_with_jax_and_reference_blocked(tmp_path):
     assert "DF32-OK" in proc.stdout
     assert "PERSIST-OK" in proc.stdout
     assert "UNSTRUCTURED-OK" in proc.stdout
+    assert "MESH-EXAMPLES-OK" in proc.stdout
 
 
 def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
