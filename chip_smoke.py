@@ -127,7 +127,23 @@ from the root of the repository.  Phases, one line or more each:
     version (a few ulps apart: the kernels fuse each product with fma)
     and a bitwise repeat, timed beside CSR ``torch.mv`` and the bounds,
     A.mv against CSR, and one solve pass's device-busy ms;
-12. the ``kernels`` JSON line, then the device JSON line last.
+12. the multi-device layer (``phase_multidevice``, run right after the
+    flagship): (A) an NCCL group of one rank in this process, a 1-rank
+    DeviceMesh, ``shard_domain_state`` and the flagship's timed step
+    with ``rowshard_mesh``, bitwise equal to the unsharded step, its ms
+    beside the unsharded step's in turns, the packed kernel's launches
+    and the bytes through the collectives; (B) two gloo ranks on this
+    one card (``torch.distributed.run``, ``metafem_torch.parallel.
+    dryrun --device cuda``, under a time limit that kills the group):
+    the flagship at nel=(800,400) with lattice_pad=2, the refined
+    multigrid step with f64 residuals and its df32 twin, then the pikachu
+    brick (BSR tail, auxmg) at nel=(24,17,17), each sharded step within
+    1e-8·max|x| of the same step whole, refines equal on both ranks,
+    and per rank its window, rows, launches, peak memory beside the whole
+    step's, bytes staged and moved, ms, and the window's packed,
+    two-float and BSR-tail kernels against their plain versions and a
+    repeat;
+13. the ``kernels`` JSON line, then the device JSON line last.
 
 Each path (gather probe, README step, flagship, the df32 flagship, the
 warm-started flagship, each 3D load step, each thermo-elastic step and
@@ -1006,7 +1022,10 @@ def phase_flagship(device, nel=FLAGSHIP_NEL) -> dict:
             "per_step": per_step, "vcycle_launches": vc_launches,
             "step_ms": dt * 1e3, "final_residual": final,
             "spmv32": spmv32, "spmv64": spmv64, "df32": df32,
-            "df_spmv": df_spmv, "cold": cold}
+            "df_spmv": df_spmv, "cold": cold,
+            # the domain, the inner solver and the start of the timed
+            # step, for the multi-device phase's leg A
+            "multidevice": (dom, label, x1)}
 
 
 def _flagship_df32(dom, state, x0, x_f64, label, step64, device) -> dict:
@@ -3333,6 +3352,184 @@ def phase_multifield(device, te_e=TE_E, steady_e=TE_STEADY_E,
     return out
 
 
+#: the multi-device phase's leg B: ranks on the one card, the pikachu
+#: brick's cut (the full (73,51,51) spends 107-112 s in host setup), and
+#: the time limit of its process group
+MD_RANKS = 2
+MD_PIKACHU_NEL = (24, 17, 17)
+MD_TIMEOUT_S = 420
+
+
+def _multidevice_leg_a(device, flag_md, backend="nccl") -> dict:
+    """Leg A: NCCL with one rank in this process, the flagship's own
+    domain and timed step, sharded over a 1-rank DeviceMesh: x bitwise
+    equal to the unsharded step's (every collective is an identity), the
+    steps' ms in turns (whole, sharded, sharded, whole), the packed
+    kernel's launches and the collectives' bytes of one sharded step."""
+    import torch.distributed as dist
+    from metafem_torch import bench
+    from metafem_torch.linsolve import krylov, offset_spmv
+    from metafem_torch.parallel import comm, shard_domain_state
+    from metafem_torch.parallel.dataparallel import make_mesh
+    dom, label, x1 = flag_md
+    kw = dict(sv_func=getattr(krylov, label), **bench.STEP_KW)
+    state = dom._runtime_state()
+    step = dom.make_refined_step(**kw)
+    dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh(device=device)
+        # the group's own transport, once: with one rank comm.py's
+        # collectives are identities and call none
+        one = torch.ones(1, device=device)
+        dist.all_reduce(one)
+        if float(one) != 1.0:
+            raise AssertionError(f"{backend} all_reduce on one rank: {one}")
+        sharded = shard_domain_state(state, mesh)
+        step_sh = dom.make_refined_step(rowshard_mesh=mesh, **kw)
+
+        def timed(fn, st):
+            _sync(device)
+            t = time.perf_counter()
+            out = fn(st, x1, 0.0, 1.0)
+            _sync(device)
+            return out, (time.perf_counter() - t) * 1e3
+        timed(step_sh, sharded)                  # window plans, packs
+        (xw, _, res_w, it_w), ms_w1 = timed(step, state)
+        offset_spmv.reset_launches()
+        comm.reset_counts()
+        (xs, _, res_s, it_s), ms_s1 = timed(step_sh, sharded)
+        launches = offset_spmv.group_mv.launches
+        moved = comm.counts()
+        (xs2, _, _, _), ms_s2 = timed(step_sh, sharded)
+        (_, _, _, _), ms_w2 = timed(step, state)
+    finally:
+        dist.destroy_process_group()
+    if not (torch.equal(xs, xw) and torch.equal(xs2, xs)):
+        raise AssertionError("multidevice leg A: the 1-rank sharded step is "
+                             "not bitwise the unsharded one")
+    if launches <= 0:
+        raise AssertionError("multidevice leg A: no packed kernel launch")
+    out = {"ranks": 1, "backend": backend,
+           "dof": dom.pattern.basicfield_size,
+           "bitwise": True, "res": res_s, "refines": it_s,
+           "refines_whole": it_w, "ms": [ms_s1, ms_s2],
+           "ms_whole": [ms_w1, ms_w2], "launches": launches, "comm": moved}
+    print(f"[multidevice] A: {backend} 1 rank, {out['dof']} DOF: sharded "
+          f"step "
+          f"x bitwise equal to the unsharded step's ({it_s} refines, "
+          f"residual {res_s:.3e}); ms sharded {ms_s1:.2f} {ms_s2:.2f}, "
+          f"whole {ms_w1:.2f} {ms_w2:.2f} (in turns); packed launches "
+          f"{launches}; collective bytes {moved}")
+    return out
+
+
+def _run_group(cmd, timeout_s) -> subprocess.CompletedProcess:
+    """Run a process group (torch.distributed.run) under a time limit;
+    on the limit kill the whole group and raise."""
+    import signal
+    proc = subprocess.Popen(cmd, cwd=HERE, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"multidevice: the rank group passed its "
+                             f"{timeout_s} s limit and was killed")
+    return subprocess.CompletedProcess(cmd, proc.returncode, out, err)
+
+
+def _md_kernel(rank_recs, leg, mode, which, name, peak) -> dict:
+    """One kernel's window numbers on every rank of leg B, with its
+    bounds at the card's memory rate: ``bound_ms`` the structural
+    entries, the entries of x the window's plan reads and the window's
+    y once (``dryrun.window_kernels``' ``min_bytes``);
+    ``packed_bound_ms`` the plan's bytes.  The ranks timed their
+    kernels one at a time."""
+    out = []
+    for r in rank_recs:
+        k = r[mode]["kernels"][which][name]
+        out.append({**k, "rank": r[mode]["rank"],
+                    "window": r[mode]["window"],
+                    "bound_ms": k["min_bytes"] / peak * 1e3,
+                    "packed_bound_ms": k["bytes"] / peak * 1e3,
+                    "launches": r[mode]["launches"][name]})
+    return {"leg": leg, "mode": mode, "operator": which, "ranks": out}
+
+
+def _gib(n) -> str:
+    return "not measured" if n is None else f"{n / 2**30:.2f}"
+
+
+def phase_multidevice(device, flag_md, nel=FLAGSHIP_NEL,
+                      pikachu_nel=MD_PIKACHU_NEL, backend_a="nccl") -> dict:
+    """The multi-device layer on the card: leg A (NCCL, one rank, in
+    process, bitwise) and leg B (two gloo ranks on this card through
+    ``metafem_torch.parallel.dryrun``).  NCCL across several GPUs is not
+    run here: the machine has one card.  ``backend_a`` and a CPU
+    ``device`` serve a rehearsal on the CPU."""
+    t0 = time.perf_counter()
+    out = {"A": _multidevice_leg_a(device, flag_md, backend_a)}
+    del flag_md
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_b = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", str(MD_RANKS), "-m",
+               "metafem_torch.parallel.dryrun", "--device", device.type,
+               "--backend", "gloo", "--legs", "flagship,pikachu",
+               "--nel", *map(str, nel),
+               "--pikachu-nel", *map(str, pikachu_nel), "--out", tmp]
+        p = _run_group(cmd, MD_TIMEOUT_S)
+        for line in p.stdout.splitlines():
+            if line.startswith("[dryrun]"):
+                print("[multidevice] B " + line[len("[dryrun] "):][:4000])
+        if p.returncode != 0:
+            raise AssertionError(f"multidevice leg B failed "
+                                 f"(rc {p.returncode}):\n{p.stderr[-6000:]}")
+        with open(os.path.join(tmp, "summary.json")) as f:
+            summary = json.load(f)
+    peak = _peak_bytes(torch.cuda.get_device_name(device)
+                       if device.type == "cuda" else "")
+    fl = [r for r in summary["legs"]["flagship"]["ranks"]]
+    pk = [r for r in summary["legs"]["pikachu"]["ranks"]]
+    out["B"] = {"ranks": summary["ranks"], "backend": summary["backend"],
+                "s": time.perf_counter() - t_b, "flagship": fl,
+                "pikachu": pk,
+                "packed_f32": _md_kernel(fl, "flagship", "f64", "f32_fine",
+                                         "packed", peak),
+                "packed_f64": _md_kernel(fl, "flagship", "f64", "f64_A_td",
+                                         "packed", peak),
+                "packed_df": _md_kernel(fl, "flagship", "df32", "df_A_td",
+                                        "packed_df", peak),
+                "tail_f64": _md_kernel(pk, "pikachu", "f64", "f64_A_td",
+                                       "tail", peak),
+                "pikachu_packed_f64": _md_kernel(pk, "pikachu", "f64",
+                                                 "f64_A_td", "packed", peak)}
+    for leg, recs in (("flagship", fl), ("pikachu", pk)):
+        for r in recs:
+            for mode in ("f64", "df32"):
+                if mode not in r:
+                    continue
+                m = r[mode]
+                print(f"[multidevice] B {leg} {mode} rank {m['rank']}: "
+                      f"window {m['window']} ({m['rows']} of {m['n']} rows, "
+                      f"{m['storage']} of {m['n_storage']} stored values); "
+                      f"{m['refines']} refines {m['refines_all_ranks']}, "
+                      f"residual {m['res']:.3e}, x within "
+                      f"{m['max_rel_vs_whole']:.3e} of the whole step's; "
+                      f"ms {m['ms']:.1f} (whole {m['ms_whole']:.1f}); peak "
+                      f"{_gib(m['peak_bytes'])} GiB (whole "
+                      f"{_gib(m['peak_bytes_whole'])}); launches "
+                      f"{m['launches']}; collectives {m['comm']}")
+    print(f"[multidevice] phase {time.perf_counter() - t0:.1f} s (leg B "
+          f"{out['B']['s']:.1f} s)")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: CUDA is not available")
@@ -3351,6 +3548,8 @@ def main() -> None:
     gat = run("gather", phase_gather)
     sl = run("slice", phase_slice)
     flag = run("flagship", phase_flagship)
+    mdp = run("multidevice", lambda dev: phase_multidevice(
+        dev, flag.pop("multidevice")))
     run("persist", lambda dev: phase_persist(dev, flag.pop("cold")))
     p3d = run("3d", phase_3d)
     mfp = run("multifield", phase_multifield)
@@ -3430,6 +3629,14 @@ def main() -> None:
         # the mesh-reading examples' first tangents (f64; the dense group
         # of an operator with a tail), their paths' launches
         **{k: example_numbers(mex[k]) for k in examples},
+        # the multi-device phase: leg A's 1-rank sharded flagship step,
+        # leg B's windows (2 gloo ranks on this card): each rank's f32
+        # fine operator and f64 A_td of the flagship, the pikachu
+        # brick's f64 A_td, its launches in the sharded step
+        "multidevice": {"leg_a": mdp["A"],
+                        "f32_fine": mdp["B"]["packed_f32"],
+                        "f64_A_td": mdp["B"]["packed_f64"],
+                        "pikachu_f64_A_td": mdp["B"]["pikachu_packed_f64"]},
         "max_rel_err_f64": max(kern["max_rel_err_f64"], flag["spmv64"]["rel"],
                                p3d["spmv64"]["rel"],
                                mfp["te"]["spmv64"]["rel"],
@@ -3478,6 +3685,8 @@ def main() -> None:
                               for t in flag["df32"]["trials"]],
         "df32_flagship": {k: v for k, v in flag["df32"].items()
                           if k != "trials"},
+        # leg B's df32 flagship step: each rank's window of A_td
+        "multidevice": mdp["B"]["packed_df"],
         "cavity_2d": {**{k: v for k, v in mfp["cavity"]["df32"].items()
                          if k != "df_spmv"},
                       **mfp["cavity"]["df32"]["df_spmv"]},
@@ -3509,6 +3718,8 @@ def main() -> None:
         "whole_mv": uns["whole_mv"],
         # the mesh-reading examples whose first tangent has a BSR tail
         **{k: example_tail(mex[k]) for k in examples if "bsr64" in mex[k]},
+        # leg B's pikachu step: each rank's window of the f64 A_td's tail
+        "multidevice": mdp["B"]["tail_f64"],
         "unstructured": {k: v for k, v in uns.items()
                          if k not in ("bsr32", "bsr64", "spmv32", "spmv64",
                                       "trials", "whole_mv", "df32",

@@ -64,9 +64,10 @@ STEP_KW = dict(maxiter=60, max_refine=10, max_pass=1)
 
 
 def build_domain(nel=NEL, device=None,
-                 dtype=torch.float32) -> FEM_Domain:
+                 dtype=torch.float32, lattice_pad: int = 1) -> FEM_Domain:
     """The compiled flagship domain (bench.py:132-173), T at the ambient
-    temperature."""
+    temperature.  ``lattice_pad``: as ``mesh_classical``'s (the rank
+    count of a row-sharded run)."""
     L1, L2 = 0.02, 0.01
     vert, conn = mf.make_square((L1, L2), nel)
     geo = mf.construct_total_mesh(vert, conn)
@@ -95,7 +96,8 @@ def build_domain(nel=NEL, device=None,
         wp, bg_top, h * Bilinear(T, Tenv - T)
         + em * sb * Bilinear(T, Tenv ** 4 - T ** 4))
     dom.initialize_local_assembly(explicit_max_sd_order=1)
-    dom.mesh_classical(itp_order=2, itg_order=5, itp_type="Serendipity")
+    dom.mesh_classical(itp_order=2, itg_order=5, itp_type="Serendipity",
+                       lattice_pad=lattice_pad)
     dom.assemble_global_variables()
     dom.compile()
     mesh = dom.workpieces[wp].mesh

@@ -51,11 +51,14 @@ def brick_arrays(nel):
     return vert, np.asarray(conn)
 
 
-def build(nel=(73, 51, 51), device=None, **layout_opts):
+def build(nel=(73, 51, 51), device=None, lattice_pad: int = 1,
+          **layout_opts):
     """(domain, mesh) of the brick, compiled, float32, at the ambient
     temperature, converge_tol 1e-6.  ``layout_opts`` forward to
     ``assemble_global_variables``; the tail is a BSR tail at every size
-    (``blk_min_tail=1``), as pikachu's passes the default threshold."""
+    (``blk_min_tail=1``), as pikachu's passes the default threshold.
+    ``lattice_pad``: ghost control points up to a multiple of it (the
+    rank count of a row-sharded run, ``mesh_classical``)."""
     vert, conn = brick_arrays(nel)
     geo = mf.construct_total_mesh(vert, conn)
     dom = FEM_Domain(3, dtype=torch.float32, device=device)
@@ -68,7 +71,7 @@ def build(nel=(73, 51, 51), device=None, **layout_opts):
         wp, -K_COND * Bilinear(T.d(i), T.d(i)) + Bilinear(T, s))
     dom.assign_boundary_weakform(wp, bg, H_CONV * Bilinear(T, T_ENV - T))
     dom.initialize_local_assembly(explicit_max_sd_order=1)
-    dom.mesh_classical(itp_order=2, itg_order=5)
+    dom.mesh_classical(itp_order=2, itg_order=5, lattice_pad=lattice_pad)
     dom.assemble_global_variables(**{"blk_min_tail": 1, **layout_opts})
     dom.compile()
     dom.converge_tol = 1e-6

@@ -383,13 +383,28 @@ class SparseSmoothOp:
     dense: OffsetMatrix               # tailless view, shares vals
     bd_vals: Optional[torch.Tensor]   # [b, b, nbr] block diagonal
     lump: torch.Tensor                # [n] dropped-tail row sums
+    #: a rank's rows (``block_offset.WindowLayout``) of a row-sharded
+    #: tangent: ``dense`` is over the window, ``bd_vals`` [b, b, nbr_w]
+    #: over the block rows the window touches, ``lump`` the window's
+    #: rows; ``mv`` takes the whole x and returns the window's rows
+    window: object = None
 
     def mv(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.dense.mv(x) + self.lump * x
+        w = self.window
+        y = self.dense.mv(x) + self.lump * (x if w is None else w.local(x))
         if self.bd_vals is not None:
-            xpT = bsr_tail.blocked(x, self.bd_vals.shape[0]).t()  # [b, nbr]
-            yT = (self.bd_vals * xpT[None, :, :]).sum(dim=1)    # [b, nbr]
-            y = y + yT.t().reshape(-1)[:x.shape[0]]
+            b = self.bd_vals.shape[0]
+            xb = bsr_tail.blocked(x, b)
+            if w is None:
+                xpT = xb.t()                                  # [b, nbr]
+                yT = (self.bd_vals * xpT[None, :, :]).sum(dim=1)  # [b, nbr]
+                return y + yT.t().reshape(-1)[:x.shape[0]]
+            br = w.tables(x.device)["block_rows"]
+            xpT = xb[br].t()                                  # [b, nbr_w]
+            yT = (self.bd_vals * xpT[None, :, :]).sum(dim=1)
+            yb = torch.zeros_like(xb)
+            yb[br] = yT.t()
+            y = y + w.local(yb.reshape(-1)[:x.shape[0]])
         return y
 
 
@@ -402,10 +417,16 @@ class SparseInnerOp:
     op: "AuxMGOperator"
 
     def mv(self, v: torch.Tensor) -> torch.Tensor:
-        return self.op._smoother().mv(self.op.apply_m(v))
+        return self.op._smv(self.op.apply_m(v))
 
     def apply_m(self, y: torch.Tensor) -> torch.Tensor:
         return self.op.apply_m(y)
+
+
+def _rank_rows(A: OffsetMatrix):
+    """The rows A holds when they are a rank's window of a row-sharded
+    tangent, else None (the whole matrix)."""
+    return None if A.window.whole else A.window
 
 
 def refresh_tangent(A: OffsetMatrix, tree: dict, desc: AuxDesc) -> dict:
@@ -419,15 +440,26 @@ def refresh_tangent(A: OffsetMatrix, tree: dict, desc: AuxDesc) -> dict:
         return tree
     lo = A.layout
     dt, dev = A.vals.dtype, A.vals.device
+    w = _rank_rows(A)
+    n_rows = lo.n if w is None else w.n_local
     bd_vals = None
-    if lo.blk_b:
+    if lo.blk_b and w is None:
         b, nbr = lo.blk_b, lo.n_block_rows
         B3 = A.vals[lo.n_dense:].view(b, b, lo.n_coo)
         bd_vals = torch.zeros((b, b, nbr), dtype=dt, device=dev)
         bd_vals[:, :, tree["bd_rows"]] = B3[:, :, tree["bd_sel"]]
+    elif lo.blk_b:
+        # the diagonal blocks of the block rows the window touches
+        t = w.tables(dev)
+        at = t["block_pos"][tree["bd_rows"]]
+        sel = at >= 0
+        bd_vals = torch.zeros((lo.blk_b, lo.blk_b, t["block_rows"].numel()),
+                              dtype=dt, device=dev)
+        bd_vals[:, :, at[sel]] = A.tail_blocks()[
+            :, :, t["kpos"][tree["bd_sel"][sel]]]
     ones = torch.ones(lo.n, dtype=dt, device=dev)
     As0 = SparseSmoothOp(A.dense_part(), bd_vals,
-                         torch.zeros(lo.n, dtype=dt, device=dev))
+                         torch.zeros(n_rows, dtype=dt, device=dev), window=w)
     tree["smooth_lump"] = A.mv(ones) - As0.mv(ones)
     tree["smooth_bd"] = bd_vals
     return tree
@@ -443,14 +475,29 @@ class AuxMGOperator:
     tree: dict
     hier: MGHierarchy
     desc: AuxDesc
+    #: row-sharded (``parallel.rowshard.RowWindow``): A is the window's
+    #: rows (an ``OffsetMatrix`` over the window) and ``tree`` its
+    #: ``refresh_tangent``; vectors in and out are the window's rows, the
+    #: smoothing products gather x, the transfers and the lattice cycle
+    #: run whole on the gathered residual
+    rows: object = None
 
     def __post_init__(self):
         t = self.tree
         if self.desc.smooth == "sparse" and t.get("smooth_lump") is not None:
             self._S = SparseSmoothOp(self.A.dense_part(), t.get("smooth_bd"),
-                                     t["smooth_lump"])
+                                     t["smooth_lump"],
+                                     window=_rank_rows(self.A))
         else:
             self._S = self.A
+
+    def _gather(self, v: torch.Tensor) -> torch.Tensor:
+        return v if self.rows is None else self.rows.gather(v)
+
+    def _smv(self, x: torch.Tensor) -> torch.Tensor:
+        """The smoothing operator's product (x the window's rows when
+        row-sharded)."""
+        return self._S.mv(self._gather(x))
 
     # -- transfers: one index stream of n_cp each ------------------------
     def _pt(self, r: torch.Tensor) -> torch.Tensor:
@@ -494,17 +541,19 @@ class AuxMGOperator:
 
     def apply_m(self, b: torch.Tensor) -> torch.Tensor:
         d, t = self.desc, self.tree
-        S = self._S
         invd, om = t["inv_diag"], t["omega"]
+        smv = self._smv
         x = om * invd * b
         for _ in range(d.nu1 - 1):
-            x = x + om * invd * (b - S.mv(x))
-        r = b - S.mv(x)
-        xc = multigrid._vcycle_level(self.hier, t["lat"], 0, self._pt(r))
-        x = x + self._p(xc)
+            x = x + om * invd * (b - smv(x))
+        r = b - smv(x)
+        xc = multigrid._vcycle_level(self.hier, t["lat"], 0,
+                                     self._pt(self._gather(r)))
+        p = self._p(xc)
+        x = x + (p if self.rows is None else self.rows.local(p))
         for _ in range(d.nu2):
-            x = x + om * invd * (b - S.mv(x))
+            x = x + om * invd * (b - smv(x))
         return x
 
     def mv(self, v: torch.Tensor) -> torch.Tensor:
-        return self.A.mv(self.apply_m(v))
+        return self.A.mv(self._gather(self.apply_m(v)))

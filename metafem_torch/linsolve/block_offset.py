@@ -346,18 +346,17 @@ def sorted_segment_sum(data: torch.Tensor, plan, num: int) -> torch.Tensor:
 def _device_tables(layout: OffsetLayout, device: torch.device) -> dict:
     """The layout's index tables on ``device``, copied from the host once
     per (layout, device) and kept on the layout: the tail's rows and
-    columns (block ids under a BSR tail) and its segment-sum plans, the
+    columns (block ids under a BSR tail) and its column segment-sum plan
+    (``tail_col_plan``, built at the first ``tmv``), the
     BSR tail's run plan (``tail_runs``), the diagonal's storage
-    positions, each group's unit tables, the pack plans of the SpMV (by
-    vector width; a dense-only view shares its parent's) and the BSR
-    tail's plans (``bsr_tail.TailPlan``, by vector width).  A product,
-    a scaling or a new matrix then copies nothing from the host."""
+    positions and each group's unit tables (the pack and tail plans are
+    the window's, ``WindowLayout.tables``).  A product, a scaling or a
+    new matrix then copies nothing from the host."""
     tables = layout.__dict__.setdefault("_device_tables", {})
     key = str(device)
     if key not in tables:
         def dev(a):
             return torch.as_tensor(np.asarray(a, np.int64), device=device)
-        parent = layout.__dict__.get("_dense_parent")
         run_start, run_row = tail_runs(layout) if layout.blk_b else ((), ())
         tables[key] = {
             "coo_rows": dev(layout.coo_rows),
@@ -367,35 +366,309 @@ def _device_tables(layout: OffsetLayout, device: torch.device) -> dict:
                     for g in layout.pallas_groups],
             "pbs": [dev([pb for _pd, pb in g.units])
                     for g in layout.pallas_groups],
-            "run_start": dev(run_start), "run_row": dev(run_row),
-            "tail_plans": {}, "tail_pack_plans": {},
-            "pack_plans": ({} if parent is None else
-                           _device_tables(parent, device)["pack_plans"])}
+            "run_start": dev(run_start), "run_row": dev(run_row)}
     return tables[key]
+
+
+def structural_mask(layout: OffsetLayout, device) -> torch.Tensor:
+    """Bool mask over the storage, on ``device``, of the entries a
+    product needs: those the assembly writes (``storage_of_slot``) and
+    the diagonal.  Every other stored value is a zero that the assembly
+    never touches: an offset that a row does not couple to, the rows of
+    ghost control points (which hold only their diagonal), the padding
+    of the COO tail, the unwritten entries of the BSR tail's blocks.  A
+    dense-only view (``dense_only_layout``) leaves out its parent's tail
+    positions."""
+    lo = layout
+    keep = torch.zeros(lo.n_storage, dtype=torch.bool, device=device)
+    sos = torch.as_tensor(lo.storage_of_slot, dtype=torch.int64,
+                          device=device)
+    keep[sos[sos < lo.n_storage]] = True
+    ds = lo.diag_storage[lo.diag_storage >= 0]
+    keep[torch.as_tensor(ds, dtype=torch.int64, device=device)] = True
+    return keep
+
+
+class WindowLayout:
+    """The rows of a block-offset matrix that a matrix holds, and the
+    storage they own (numpy on the host, built once per window).
+
+    ``cps``: per dense group of ``layout`` a window of control points
+    (c0, c1); the window holds the rows dof_offset + c*n_cp + [c0, c1)
+    of every channel c, in that order (``rows``; the window's vectors
+    are ``v[rows]``).  Its storage is the group slabs' columns [c0, c1)
+    of every unit and offset, as [G, n_off, c1 - c0] per group
+    (``group_range``), then the tail's part from ``n_dense``: a scalar
+    COO tail's entries of the window's rows, a BSR tail's blocks that
+    touch a window row (whole, as the component-major [b, b, nb_w] view
+    of ``tail_sel``, the blocks' ids); ``storage`` gives their positions
+    in the whole storage.  The window (0, n_cp) of every group
+    (``whole_window``) is the whole matrix: all n rows, the whole
+    storage in its own order.  Pack and tail plans index the group's
+    slab and the tail's part of the window's storage."""
+
+    def __init__(self, layout: OffsetLayout, cps):
+        lo = layout
+        if len(cps) != len(lo.pallas_groups):
+            raise ValueError(f"{len(cps)} windows for "
+                             f"{len(lo.pallas_groups)} groups")
+        self.layout = lo
+        self.cps = tuple((int(a), int(b)) for a, b in cps)
+        self.whole = all(c == (0, g.n_cp)
+                         for g, c in zip(lo.pallas_groups, self.cps))
+        rows, self.wbase = [], []
+        n_dense_w = 0
+        for g, (c0, c1) in zip(lo.pallas_groups, self.cps):
+            if not 0 <= c0 <= c1 <= g.n_cp:
+                raise ValueError(f"window {(c0, c1)} outside [0, {g.n_cp}]")
+            for c in range(g.n_vars):
+                rows.append(g.dof_offset + c * g.n_cp
+                            + np.arange(c0, c1, dtype=np.int64))
+            self.wbase.append(n_dense_w)
+            n_dense_w += len(g.units) * g.n_off * (c1 - c0)
+        self.n_dense = n_dense_w
+        if self.whole:
+            if self.wbase != [g.base for g in lo.pallas_groups] \
+                    or n_dense_w != lo.n_dense:
+                raise ValueError("the dense groups do not tile the storage")
+            self.rows = np.arange(lo.n, dtype=np.int64)
+            self.tail_sel = np.arange(lo.n_coo, dtype=np.int64)
+            self.diag = np.asarray(lo.diag_storage, np.int64)
+        else:
+            self.rows = (np.concatenate(rows) if rows
+                         else np.zeros(0, np.int64))
+            inwin = self.row_mask()
+            if lo.blk_b:
+                b = lo.blk_b
+                padded = np.zeros(lo.n_block_rows * b, bool)
+                padded[:lo.n] = inwin
+                touches = padded.reshape(-1, b).any(axis=1)
+                self.tail_sel = np.flatnonzero(
+                    touches[np.asarray(lo.coo_rows, np.int64)])
+            else:
+                self.tail_sel = np.flatnonzero(
+                    inwin[np.asarray(lo.coo_rows, np.int64)])
+            self.diag = self._window_diag()
+        self.n_local = self.rows.size
+        self.n_storage = self.n_dense + (lo.blk_b ** 2 if lo.blk_b else 1) \
+            * self.tail_sel.size
+        r0 = int(self.rows[0]) if self.n_local else 0
+        self.row_slice = (slice(r0, r0 + self.n_local) if np.array_equal(
+            self.rows, np.arange(r0, r0 + self.n_local)) else None)
+        #: a dense-only view's window shares its parent's pack plans
+        self.parent = None
+        self._dev: dict = {}
+
+    def row_mask(self) -> np.ndarray:
+        """Bool [n]: True at the window's rows."""
+        inwin = np.zeros(self.layout.n, bool)
+        inwin[self.rows] = True
+        return inwin
+
+    def _window_diag(self) -> np.ndarray:
+        """The diagonal's positions in the window's storage (-1 where a
+        row stores none)."""
+        lo = self.layout
+        diag = np.full(self.rows.size, -1, np.int64)
+        at = 0
+        for gi, (g, (c0, c1)) in enumerate(zip(lo.pallas_groups, self.cps)):
+            n_g = g.n_vars * (c1 - c0)
+            ds = lo.diag_storage[self.rows[at:at + n_g]]
+            p = ds - g.base
+            uk, r = p // g.n_cp, p % g.n_cp
+            diag[at:at + n_g] = np.where(
+                ds < 0, -1, self.wbase[gi] + uk * (c1 - c0) + r - c0)
+            at += n_g
+        return diag
+
+    @property
+    def storage(self) -> np.ndarray:
+        """The window's storage positions in the whole storage, in the
+        window's order."""
+        lo = self.layout
+        if self.whole:
+            return np.arange(lo.n_storage, dtype=np.int64)
+        sto = []
+        for g, (c0, c1) in zip(lo.pallas_groups, self.cps):
+            starts = (g.base + c0 + g.n_cp * np.arange(
+                len(g.units) * g.n_off, dtype=np.int64))
+            sto.append((starts[:, None]
+                        + np.arange(c1 - c0, dtype=np.int64)).reshape(-1))
+        if lo.blk_b:
+            comp = np.arange(lo.blk_b ** 2, dtype=np.int64)
+            sto.append((lo.n_dense + comp[:, None] * lo.n_coo
+                        + self.tail_sel[None, :]).reshape(-1))
+        else:
+            sto.append(lo.n_dense + self.tail_sel)
+        return np.concatenate(sto)
+
+    def group_range(self, i: int) -> slice:
+        """Dense group i's slab in the window's storage: what its pack
+        plan's positions index."""
+        g, (c0, c1) = self.layout.pallas_groups[i], self.cps[i]
+        return slice(self.wbase[i],
+                     self.wbase[i] + len(g.units) * g.n_off * (c1 - c0))
+
+    def dense_only(self) -> "WindowLayout":
+        """This window of ``dense_only_layout(layout)``: the same dense
+        storage and pack plans, no tail.  Kept on the window."""
+        view = self.__dict__.get("_dense_only")
+        if view is None:
+            view = WindowLayout(dense_only_layout(self.layout), self.cps)
+            view.parent = self
+            self._dense_only = view
+        return view
+
+    def tables(self, device) -> dict:
+        """The window's index tables on ``device``, copied once: rows,
+        diagonal positions, the tail's rows and columns (block ids under a
+        BSR tail) and a scalar tail's segment-sum plan over its rows, the
+        pack and tail plans (by vector width), and under a BSR tail of a
+        part of the rows the block rows the window touches
+        (``block_rows``), each block row's place among them
+        (``block_pos``) and each tail block's among the window's
+        (``kpos``)."""
+        key = str(device)
+        if key not in self._dev:
+            lo = self.layout
+
+            def dev(a):
+                return torch.as_tensor(np.asarray(a, np.int64),
+                                       device=device)
+            lt = _device_tables(lo, device)
+            t = {"rows": dev(self.rows), "diag": dev(self.diag),
+                 "pack_plans": ({} if self.parent is None else
+                                self.parent.tables(device)["pack_plans"]),
+                 "tail_pack_plans": {}}
+            if self.whole:
+                t["tail_rows"], t["tail_cols"] = lt["coo_rows"], lt["coo_cols"]
+            else:
+                t["tail_rows"] = dev(np.asarray(lo.coo_rows)[self.tail_sel])
+                t["tail_cols"] = dev(np.asarray(lo.coo_cols)[self.tail_sel])
+            if lo.n_coo and not lo.blk_b:
+                t["tail_plan"] = sorted_segment_plan(
+                    np.asarray(lo.coo_rows)[self.tail_sel], device)
+            if lo.blk_b and not self.whole:
+                br = np.unique(self.rows // lo.blk_b)
+                t["block_rows"] = dev(br)
+                pos = np.full(lo.n_block_rows, -1, np.int64)
+                pos[br] = np.arange(br.size)
+                t["block_pos"] = dev(pos)
+                kpos = np.full(lo.n_coo, -1, np.int64)
+                kpos[self.tail_sel] = np.arange(self.tail_sel.size)
+                t["kpos"] = dev(kpos)
+            self._dev[key] = t
+        return self._dev[key]
+
+    def local(self, v: torch.Tensor) -> torch.Tensor:
+        """The window's rows of a whole vector (the last axis): a view
+        when they are one slice."""
+        if self.row_slice is not None:
+            return v[..., self.row_slice]
+        return v[..., self.tables(v.device)["rows"]]
+
+    def pack_plans(self, device, vec: int) -> list:
+        """Per dense group, the pack plan of its window
+        (``offset_spmv.build_pack_plan(rows=...)``, built from
+        ``structural_mask``), its positions in the window's slab of the
+        group; built once per window, device and width."""
+        plans = self.tables(device)["pack_plans"]
+        if vec not in plans:
+            keep = structural_mask(self.layout, device)
+            out = []
+            for g, (c0, c1) in zip(self.layout.pallas_groups, self.cps):
+                n_slab = len(g.units) * g.n_off * g.n_cp
+                plan = offset_spmv.build_pack_plan(
+                    keep[g.base:g.base + n_slab].view(
+                        len(g.units), g.n_off, g.n_cp), g, vec,
+                    rows=(c0, c1))
+                if (c0, c1) != (0, g.n_cp):
+                    p = plan.positions.long()
+                    uk = p // g.n_cp
+                    pw = uk * (c1 - c0) + (p - uk * g.n_cp) - c0
+                    pw[plan.pad] = 0
+                    plan = dataclasses.replace(
+                        plan, positions=pw.to(plan.positions.dtype))
+                out.append(plan)
+            plans[vec] = out
+        return plans[vec]
+
+    def tail_plan(self, device, vec: int):
+        """The BSR tail's plan over the window's rows
+        (``bsr_tail.build_tail_plan``, built from ``structural_mask``),
+        its positions in the tail's part of the window's storage; built
+        once per window, device and width."""
+        plans = self.tables(device)["tail_pack_plans"]
+        if vec not in plans:
+            lo = self.layout
+            keep = structural_mask(lo, device)[lo.n_dense:]
+            if self.whole:
+                plans[vec] = bsr_tail.build_tail_plan(lo, keep, vec)
+                return plans[vec]
+            t = self.tables(device)
+            plan = bsr_tail.build_tail_plan(
+                lo, keep, vec,
+                row_mask=torch.as_tensor(self.row_mask(), device=device))
+            nb, nbw = lo.n_coo, self.tail_sel.size
+            p = plan.positions.long()
+            comp = p // nb
+            pw = comp * nbw + t["kpos"][p - comp * nb]
+            pw[plan.pad] = 0
+            plans[vec] = dataclasses.replace(
+                plan, positions=pw.to(plan.positions.dtype))
+        return plans[vec]
+
+
+def whole_window(layout: OffsetLayout) -> WindowLayout:
+    """The window of all of ``layout``'s rows (the whole matrix), kept on
+    the layout; a dense-only view's is its parent's ``dense_only``."""
+    w = layout.__dict__.get("_whole_window")
+    if w is None:
+        parent = layout.__dict__.get("_dense_parent")
+        w = (whole_window(parent).dense_only() if parent is not None
+             else WindowLayout(layout, [(0, g.n_cp)
+                                        for g in layout.pallas_groups]))
+        layout._whole_window = w
+    return w
 
 
 @dataclasses.dataclass
 class OffsetMatrix:
-    """Square sparse matrix in block-offset storage.
+    """Square sparse matrix in block-offset storage, or the rows of one
+    that a rank holds.
 
-    ``mv`` runs on the packed structural values of each dense group
-    (``offset_spmv.PackPlan``) and of a BSR tail (``bsr_tail.TailPlan``),
+    ``window`` (a ``WindowLayout``; by default ``whole_window``, the
+    whole matrix) says which rows: ``vals`` is the window's storage,
+    ``mv`` takes the whole x and returns the window's rows of A x,
+    ``diag`` the window's rows of the diagonal, ``scale_rows`` and
+    ``scale_cols`` take the whole s.  ``mv`` runs on the packed
+    structural values of each dense group (``offset_spmv.PackPlan``)
+    and of a BSR tail (``bsr_tail.TailPlan``) over the window's plans,
     gathered from ``vals`` at the matrix's first product and kept in
-    ``_packed``.  That copy stays valid because
-    no code of the port changes ``vals`` in place after ``from_values``:
-    every assembly, scaling and cast makes a new matrix."""
-    vals: torch.Tensor           # [n_storage]
+    ``_packed``.  That copy stays valid because no code of the port
+    changes ``vals`` in place after ``from_values``: every assembly,
+    scaling and cast makes a new matrix."""
+    vals: torch.Tensor           # [window.n_storage]
     coo_rows: torch.Tensor       # device copies of the tail indices
     coo_cols: torch.Tensor
     layout: OffsetLayout         # static
     _packed: dict = dataclasses.field(default_factory=dict, repr=False,
                                       compare=False)
+    window: WindowLayout = dataclasses.field(default=None, repr=False,
+                                             compare=False)
+
+    def __post_init__(self):
+        if self.window is None:
+            self.window = whole_window(self.layout)
+        elif self.window.layout is not self.layout:
+            raise ValueError("the window is not of the matrix's layout")
 
     @classmethod
-    def from_values(cls, vals: torch.Tensor,
-                    layout: OffsetLayout) -> "OffsetMatrix":
+    def from_values(cls, vals: torch.Tensor, layout: OffsetLayout,
+                    window: WindowLayout = None) -> "OffsetMatrix":
         t = _device_tables(layout, vals.device)
-        return cls(vals, t["coo_rows"], t["coo_cols"], layout)
+        return cls(vals, t["coo_rows"], t["coo_cols"], layout,
+                   window=window)
 
     @property
     def n(self) -> int:
@@ -404,87 +677,84 @@ class OffsetMatrix:
     def _tables(self) -> dict:
         return _device_tables(self.layout, self.vals.device)
 
+    def _wtables(self) -> dict:
+        return self.window.tables(self.vals.device)
+
+    def _new(self, vals: torch.Tensor) -> "OffsetMatrix":
+        return OffsetMatrix(vals, self.coo_rows, self.coo_cols, self.layout,
+                            window=self.window)
+
+    def _whole(self, what: str) -> None:
+        if not self.window.whole:
+            raise ValueError(f"{what} needs the whole matrix, not a window "
+                             f"of its rows")
+
     def dense_part(self) -> "OffsetMatrix":
         """The matrix without its tail, over ``dense_only_layout``: the
         same values, and the same packed values (one pack serves both)."""
         view = dense_only_layout(self.layout)
         t = _device_tables(view, self.vals.device)
         return OffsetMatrix(self.vals, t["coo_rows"], t["coo_cols"], view,
-                            _packed=self._packed)
+                            _packed=self._packed,
+                            window=self.window.dense_only())
 
-    def _tail_plan(self, by: str):
-        """The COO tail's segment-sum plan over its rows or its columns,
-        built once per layout and device."""
-        plans = self._tables()["tail_plans"]
-        if by not in plans:
-            lo = self.layout
-            plans[by] = sorted_segment_plan(
-                lo.coo_rows if by == "rows" else lo.coo_cols,
-                self.vals.device)
-        return plans[by]
+    def _tail_col_plan(self):
+        """The tail's segment-sum plan over its columns (block columns
+        under a BSR tail), built once per layout and device."""
+        t = self._tables()
+        if "tail_col_plan" not in t:
+            t["tail_col_plan"] = sorted_segment_plan(self.layout.coo_cols,
+                                                     self.vals.device)
+        return t["tail_col_plan"]
 
     def pack_plans(self, vec: int = None) -> list:
         """One ``offset_spmv.PackPlan`` per dense group for vals' device
         and float width (or ``vec`` slots per load: the two-float product
-        takes the float64 plan), built from ``structural_mask`` once per
-        layout, device and width."""
+        takes the float64 plan): the window's (``WindowLayout.pack_plans``)."""
         vec = vec or offset_spmv.VEC_BYTES // self.vals.element_size()
-        plans = self._tables()["pack_plans"]
-        if vec not in plans:
-            keep = self.structural_mask()
-            plans[vec] = [
-                offset_spmv.build_pack_plan(
-                    keep[g.base:g.base + len(g.units) * g.n_off * g.n_cp]
-                    .view(len(g.units), g.n_off, g.n_cp), g, vec)
-                for g in self.layout.pallas_groups]
-        return plans[vec]
+        return self.window.pack_plans(self.vals.device, vec)
 
     def packed(self, i: int) -> torch.Tensor:
         """Dense group i's structural values, gathered through its pack
         plan at the first call and kept."""
         if i not in self._packed:
-            g = self.layout.pallas_groups[i]
-            n_slab = len(g.units) * g.n_off * g.n_cp
             self._packed[i] = offset_spmv.pack(
-                self.vals[g.base:g.base + n_slab], self.pack_plans()[i])
+                self.vals[self.window.group_range(i)], self.pack_plans()[i])
         return self._packed[i]
 
     def tail_plan(self, vec: int = None):
         """The BSR tail's ``bsr_tail.TailPlan`` for vals' device and float
         width (or ``vec`` slots per load: the two-float product takes the
-        float64 plan), built from ``structural_mask`` once per layout,
-        device and width."""
+        float64 plan): the window's (``WindowLayout.tail_plan``)."""
         vec = vec or offset_spmv.VEC_BYTES // self.vals.element_size()
-        plans = self._tables()["tail_pack_plans"]
-        if vec not in plans:
-            plans[vec] = bsr_tail.build_tail_plan(
-                self.layout, self.structural_mask()[self.layout.n_dense:],
-                vec)
-        return plans[vec]
+        return self.window.tail_plan(self.vals.device, vec)
 
     def packed_tail(self) -> torch.Tensor:
         """The BSR tail's structural values, gathered through its tail
         plan at the first call and kept."""
         if "tail" not in self._packed:
             self._packed["tail"] = offset_spmv.pack(
-                self.vals[self.layout.n_dense:], self.tail_plan())
+                self.vals[self.window.n_dense:], self.tail_plan())
         return self._packed["tail"]
 
-    def _tail_blocks(self) -> torch.Tensor:
-        """The BSR tail's values as the component-major [b, b, nb] view."""
-        lo = self.layout
-        return self.vals[lo.n_dense:].view(lo.blk_b, lo.blk_b, lo.n_coo)
+    def tail_blocks(self) -> torch.Tensor:
+        """The BSR tail's values (the window's blocks) as the
+        component-major [b, b, nb] view."""
+        b = self.layout.blk_b
+        return self.vals[self.window.n_dense:].view(
+            b, b, self.window.tail_sel.size)
 
     def _blocked(self, v: torch.Tensor) -> torch.Tensor:
         """v [n] zero-padded to whole blocks, as [n_block_rows, b]."""
         return bsr_tail.blocked(v, self.layout.blk_b)
 
     def mv(self, x: torch.Tensor) -> torch.Tensor:
-        """y = A x: one offset_spmv.group_mv per dense group on its packed
-        values (the hand-written kernel on CUDA, its plain version on the
-        CPU), then the tail: a BSR tail through bsr_tail.tail_mv on its
-        packed values (its kernel on CUDA) adding into y, a scalar COO
-        tail as a sorted segment sum."""
+        """y = A x (the window's rows of it; x whole): one
+        offset_spmv.group_mv per dense group on its packed values (the
+        hand-written kernel on CUDA, its plain version on the CPU), then
+        the tail: a BSR tail through bsr_tail.tail_mv on its packed values
+        (its kernel on CUDA) adding into y, a scalar COO tail as a sorted
+        segment sum.  The kernels write the window's rows of a whole y."""
         lo = self.layout
         covered = sum(g.n_vars * g.n_cp for g in lo.pallas_groups)
         y = (torch.empty if covered == lo.n else torch.zeros)(
@@ -499,10 +769,11 @@ class OffsetMatrix:
         if lo.blk_b:
             bsr_tail.tail_mv(self.packed_tail(), x, y, self.tail_plan())
         elif lo.n_coo:
+            t = self._wtables()
             y = y + sorted_segment_sum(
-                self.vals[lo.n_dense:] * x[self.coo_cols],
-                self._tail_plan("rows"), lo.n)
-        return y
+                self.vals[self.window.n_dense:] * x[t["tail_cols"]],
+                t["tail_plan"], lo.n)
+        return y if self.window.whole else self.window.local(y)
 
     def tmv(self, x: torch.Tensor) -> torch.Tensor:
         """y = A.T x: per dense group and offset d_k, the products
@@ -510,6 +781,7 @@ class OffsetMatrix:
         slice adds in unit order, no atomics); the COO tail is a sorted
         segment sum over the stable column order, a BSR tail's block
         products a sorted segment sum over the block columns."""
+        self._whole("tmv")
         lo = self.layout
         y = torch.zeros(lo.n, dtype=x.dtype, device=x.device)
         for grp in lo.pallas_groups:
@@ -529,86 +801,68 @@ class OffsetMatrix:
                         yw[pb, :n_cp + d] += prod[k, -d:]
         if lo.blk_b:
             b = lo.blk_b
-            B = self._tail_blocks()
+            B = self.tail_blocks()
             xg = self._blocked(x)[self.coo_rows]               # [nb, b]
             contrib = B[0] * xg[:, 0]                          # [b, nb]
             for i in range(1, b):
                 contrib = contrib + B[i] * xg[:, i]
-            yb = sorted_segment_sum(contrib.t(), self._tail_plan("cols"),
+            yb = sorted_segment_sum(contrib.t(), self._tail_col_plan(),
                                     lo.n_block_rows)
             y = y + yb.reshape(-1)[:lo.n]
         elif lo.n_coo:
             y = y + sorted_segment_sum(
                 self.vals[lo.n_dense:] * x[self.coo_rows],
-                self._tail_plan("cols"), lo.n)
+                self._tail_col_plan(), lo.n)
         return y
 
     def diag(self, diag_pos=None) -> torch.Tensor:
-        """The diagonal (``diag_pos`` is accepted for the signature of
-        the reference's solvers: block-offset storage knows its diagonal
-        positions)."""
-        ds = self._tables()["diag"]
+        """The diagonal (the window's rows of it; ``diag_pos`` is accepted
+        for the signature of the reference's solvers: block-offset storage
+        knows its diagonal positions)."""
+        ds = self._wtables()["diag"]
         d = self.vals[ds.clamp(min=0)]
         return torch.where(ds < 0, torch.zeros_like(d), d)
 
-    def _scaled_groups(self, vals: torch.Tensor, s: torch.Tensor,
-                       by_row: bool) -> torch.Tensor:
-        t = self._tables()
-        for i, grp in enumerate(self.layout.pallas_groups):
+    def _scaled(self, s: torch.Tensor, by_row: bool) -> "OffsetMatrix":
+        """A copy with entry (i, j) times s[i] (``by_row``) or s[j]; s
+        whole."""
+        lo, w = self.layout, self.window
+        t, wt = self._tables(), self._wtables()
+        vals = self.vals.clone()
+        for i, (grp, (c0, c1)) in enumerate(zip(lo.pallas_groups, w.cps)):
             C, n_cp, n_off = grp.n_vars, grp.n_cp, grp.n_off
             G = len(grp.units)
             sw = s[grp.dof_offset:grp.dof_offset + C * n_cp].view(C, n_cp)
             if by_row:
-                sc = sw[t["pds"][i]][:, None, :].expand(G, n_off, n_cp)
+                sc = sw[t["pds"][i]][:, None, c0:c1].expand(
+                    G, n_off, c1 - c0)
             else:
-                sc = offset_spmv.shifted_stack(sw, grp.offsets)
-                sc = sc[:, t["pbs"][i]].transpose(0, 1)  # [G, n_off, n_cp]
-            region = slice(grp.base, grp.base + G * n_off * n_cp)
+                sc = offset_spmv.shifted_stack(sw, grp.offsets)[:, :, c0:c1]
+                sc = sc[:, t["pbs"][i]].transpose(0, 1)  # [G, n_off, w]
+            region = w.group_range(i)
             vals[region] = vals[region] * sc.reshape(-1)
-        return vals
+        ids = wt["tail_rows" if by_row else "tail_cols"]
+        if lo.blk_b:
+            sc = self._blocked(s)[ids].t()                     # [b, nb]
+            tail = vals[w.n_dense:].view(lo.blk_b, lo.blk_b, -1)
+            # entry (i, j) *= s[row i] or s[col j]
+            tail.mul_(sc[:, None, :] if by_row else sc[None, :, :])
+        elif lo.n_coo:
+            vals[w.n_dense:] = vals[w.n_dense:] * s[ids]
+        return self._new(vals)
 
     def scale_cols(self, s: torch.Tensor) -> "OffsetMatrix":
         """A diag(s): entry (i, j) times s[j]."""
-        lo = self.layout
-        vals = self._scaled_groups(self.vals.clone(), s, by_row=False)
-        if lo.blk_b:
-            sc = self._blocked(s)[self.coo_cols].t()           # [b, nb]
-            tail = vals[lo.n_dense:].view(lo.blk_b, lo.blk_b, lo.n_coo)
-            tail.mul_(sc[None, :, :])          # entry (i, j) *= s[col j]
-        elif lo.n_coo:
-            vals[lo.n_dense:] = vals[lo.n_dense:] * s[self.coo_cols]
-        return OffsetMatrix(vals, self.coo_rows, self.coo_cols, lo)
+        return self._scaled(s, by_row=False)
 
     def scale_rows(self, s: torch.Tensor) -> "OffsetMatrix":
         """diag(s) A: entry (i, j) times s[i]."""
-        lo = self.layout
-        vals = self._scaled_groups(self.vals.clone(), s, by_row=True)
-        if lo.blk_b:
-            sc = self._blocked(s)[self.coo_rows].t()           # [b, nb]
-            tail = vals[lo.n_dense:].view(lo.blk_b, lo.blk_b, lo.n_coo)
-            tail.mul_(sc[:, None, :])          # entry (i, j) *= s[row i]
-        elif lo.n_coo:
-            vals[lo.n_dense:] = vals[lo.n_dense:] * s[self.coo_rows]
-        return OffsetMatrix(vals, self.coo_rows, self.coo_cols, lo)
+        return self._scaled(s, by_row=True)
 
     def structural_mask(self) -> torch.Tensor:
-        """Bool mask over the storage, on vals' device, of the entries a
-        product needs: those the assembly writes (``storage_of_slot``)
-        and the diagonal.  Every other stored value is a zero that the
-        assembly never touches: an offset that a row does not couple to,
-        the rows of ghost control points (which hold only their
-        diagonal), the padding of the COO tail, the unwritten entries of
-        the BSR tail's blocks.  A dense-only view (``dense_only_layout``)
-        leaves out its parent's tail positions."""
-        lo = self.layout
-        dev = self.vals.device
-        keep = torch.zeros(lo.n_storage, dtype=torch.bool, device=dev)
-        sos = torch.as_tensor(lo.storage_of_slot, dtype=torch.int64,
-                              device=dev)
-        keep[sos[sos < lo.n_storage]] = True
-        ds = lo.diag_storage[lo.diag_storage >= 0]
-        keep[torch.as_tensor(ds, dtype=torch.int64, device=dev)] = True
-        return keep
+        """``structural_mask`` of the layout on vals' device."""
+        self._whole("structural_mask")
+        return structural_mask(self.layout, self.vals.device)
 
     def _triplets(self, keep=None):
         """(rows, cols, storage positions), int64 on vals' device, of the
@@ -616,6 +870,7 @@ class OffsetMatrix:
         segments in storage order, then the tail (a BSR tail's entries
         component by component, those of padded edge blocks left out).
         ``keep`` (a bool mask over the storage) selects a subset."""
+        self._whole("_triplets")
         lo = self.layout
         dev = self.vals.device
         rows, cols, pos = [], [], []
@@ -672,3 +927,4 @@ class OffsetMatrix:
             (self.vals.detach()[pos].cpu().numpy(),
              (rows.cpu().numpy(), cols.cpu().numpy())),
             shape=(self.n, self.n))
+

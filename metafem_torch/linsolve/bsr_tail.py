@@ -162,12 +162,15 @@ def slot_rows(ptr: torch.Tensor, vec: int) -> torch.Tensor:
     return (torch.arange(m.numel(), device=dev) - ptr[m]) // vec
 
 
-def build_tail_plan(layout, keep: torch.Tensor, vec: int) -> TailPlan:
+def build_tail_plan(layout, keep: torch.Tensor, vec: int,
+                    row_mask: torch.Tensor = None) -> TailPlan:
     """The tail plan of ``layout``'s BSR tail on keep's device.
     ``keep``: bool [b*b*nb], True at the structural entries of the tail's
     storage (``OffsetMatrix.structural_mask()[n_dense:]``); ``vec``:
     slots per 16-byte load (2 for float64 and two-float, 4 for
-    float32)."""
+    float32).  ``row_mask``: bool [n] on keep's device, the rows to pack
+    (a rank's row window, ``block_offset.WindowLayout``); None packs
+    every row."""
     t0 = time.perf_counter()
     dev = keep.device
     b, nb, n = layout.blk_b, layout.n_coo, layout.n
@@ -187,6 +190,10 @@ def build_tail_plan(layout, keep: torch.Tensor, vec: int) -> TailPlan:
     del comp, k
     if pos.numel() and int(torch.maximum(r, c).max()) >= n:
         raise ValueError("a structural tail entry lies outside the matrix")
+    if row_mask is not None:
+        sel = row_mask[r]
+        pos, r, c = pos[sel], r[sel], c[sel]
+        del sel
     order = torch.argsort(r * n + c, stable=True)     # by row, then column
     pos, r, c = pos[order], r[order], c[order]
     del order

@@ -60,25 +60,52 @@ def _block_sum(v: torch.Tensor) -> torch.Tensor:
     return vp.sum(dim=1, dtype=torch.float64).sum()
 
 
-def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _rows(A):
+    """The row window of a row-sharded operator (``parallel.rowshard``:
+    vectors hold the rank's rows, every reduction is a local sum plus one
+    all-reduce over the mesh), or None for a whole operator."""
+    return getattr(A, "row_window", None)
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor, rows=None) -> torch.Tensor:
     """Inner product; float32 vectors accumulate as the reference's dot2
     (error-free elementwise products p + err, both block-summed with a
-    float64 tail), returned as float32."""
+    float64 tail), returned as float32.  ``rows``: the operator's row
+    window (``_rows``): the local sum (float64 for float32 vectors) is
+    all-reduced before the cast, the same bits on every rank."""
     if a.dtype == torch.float64:
-        return torch.dot(a, b)
+        d = torch.dot(a, b)
+        return d if rows is None else rows.all_reduce(d)
     if a.dtype != torch.float32:
         raise NotImplementedError(
             f"Krylov solves run in float32 or float64, not {a.dtype}")
     p, err = _two_prod(a, b)
-    return (_block_sum(p) + _block_sum(err)).to(torch.float32)
+    d = _block_sum(p) + _block_sum(err)
+    return (d if rows is None else rows.all_reduce(d)).to(torch.float32)
 
 
-def _norm(v: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(_dot(v, v))
+def _norm(v: torch.Tensor, rows=None) -> torch.Tensor:
+    return torch.sqrt(_dot(v, v, rows))
 
 
-def _nn(v: torch.Tensor) -> torch.Tensor:
-    return _norm(v) / math.sqrt(v.shape[0])
+def _nn(v: torch.Tensor, rows=None) -> torch.Tensor:
+    n = v.shape[0] if rows is None else rows.n
+    return _norm(v, rows) / math.sqrt(n)
+
+
+def _mdot(M: torch.Tensor, v: torch.Tensor, rows=None) -> torch.Tensor:
+    """M @ v for a short stack of vectors M (IDR(s)'s shadow space,
+    GMRES's basis): local products, all-reduced over ``rows``."""
+    d = M @ v
+    return d if rows is None else rows.all_reduce(d)
+
+
+def _whole_only(A, name: str) -> None:
+    if _rows(A) is not None:
+        raise NotImplementedError(
+            f"{name} takes whole operators only; the row-sharded solves "
+            f"run cg, bicgstab, bicgstabl(_gs), idrs, gmres, cgs and "
+            f"chebyshev")
 
 
 def _pl(pl, v):
@@ -92,26 +119,27 @@ def _prep(A, b, x0, pl):
 
 
 def bicgstab(A, b, x0=None, tol=1e-8, maxiter=1000, pl=None):
+    rw = _rows(A)
     x, r = _prep(A, b, x0, pl)
     rt = r
     one = torch.ones((), dtype=b.dtype, device=b.device)
     rho = alpha = omega = one
     v = p = torch.zeros_like(b)
     i = 0
-    while i < maxiter and float(_nn(r)) > tol:
-        rho_new = _dot(rt, r)
+    while i < maxiter and float(_nn(r, rw)) > tol:
+        rho_new = _dot(rt, r, rw)
         beta = (rho_new / rho) * (alpha / omega)
         p = r + beta * (p - omega * v)
         v = _pl(pl, A.mv(p))
-        alpha = rho_new / _dot(rt, v)
+        alpha = rho_new / _dot(rt, v, rw)
         s = r - alpha * v
         t = _pl(pl, A.mv(s))
-        omega = _dot(t, s) / _dot(t, t)
+        omega = _dot(t, s, rw) / _dot(t, t, rw)
         x = x + alpha * p + omega * s
         r = s - omega * t
         rho = rho_new
         i += 1
-    return x, i, _nn(r)
+    return x, i, _nn(r, rw)
 
 
 # ---------------------------------------------------------------------------
@@ -145,9 +173,10 @@ def chebyshev(A, b, x0=None, tol=None, maxiter=8, pl=None,
     products, each iteration one operator apply plus two axpys, a fixed
     trip count of ``maxiter``.  ``tol`` is ignored; the caller measures
     true residuals outside."""
+    rw = _rows(A)
     carry = chebyshev_init(A, b, x0=x0, pl=pl, interval=interval)
     x, r, _, _ = chebyshev_steps(A, carry, maxiter, interval, pl=pl)
-    return x, maxiter, _nn(r)
+    return x, maxiter, _nn(r, rw)
 
 
 def chebyshev_init(A, b, x0=None, pl=None, interval=(0.05, 1.95)):
@@ -214,10 +243,10 @@ def _dev(a: np.ndarray, b: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(a, dtype=b.dtype).to(b.device)
 
 
-def _modify_omega(t, r):
+def _modify_omega(t, r, rows=None):
     """Omega angle stabilization (modify_Omega, 04_IDRs.jl:1-8)."""
-    tn, rn = _norm(t), _norm(r)
-    tr = _dot(t, r)
+    tn, rn = _norm(t, rows), _norm(r, rows)
+    tr = _dot(t, r, rows)
     rho = torch.abs(tr / _nonzero(tn * rn))
     omega = tr / torch.where(tn == 0, torch.ones_like(tn), tn * tn)
     return torch.where(rho < _ANGLE, omega * _ANGLE / _nonzero(rho), omega)
@@ -228,20 +257,21 @@ def _modify_omega(t, r):
 # ---------------------------------------------------------------------------
 
 def cg(A, b, x0=None, tol=1e-8, maxiter=1000, pl=None):
+    rw = _rows(A)
     x, r = _prep(A, b, x0, pl)
     p = r
-    rs = _dot(r, r)
+    rs = _dot(r, r, rw)
     i = 0
-    while i < maxiter and float(_nn(r)) > tol:
+    while i < maxiter and float(_nn(r, rw)) > tol:
         Ap = _pl(pl, A.mv(p))
-        alpha = rs / _dot(p, Ap)
+        alpha = rs / _dot(p, Ap, rw)
         x = x + alpha * p
         r = r - alpha * Ap
-        rs_new = _dot(r, r)
+        rs_new = _dot(r, r, rw)
         p = r + (rs_new / rs) * p
         rs = rs_new
         i += 1
-    return x, i, _nn(r)
+    return x, i, _nn(r, rw)
 
 
 # ---------------------------------------------------------------------------
@@ -252,13 +282,14 @@ def _bicg_part(A, rt, x, rs, us, rho0, alpha, pl, l):
     """The l BiCG steps of one BiCGStab(l) cycle, in place on the lists
     rs and us; returns (x, rho0, alpha)."""
     for j in range(l):
-        rho1 = _dot(rt, rs[j])
+        rw = _rows(A)
+        rho1 = _dot(rt, rs[j], rw)
         beta = alpha * rho1 / rho0
         rho0 = rho1
         for k in range(j + 1):
             us[k] = rs[k] - beta * us[k]
         us[j + 1] = _pl(pl, A.mv(us[j]))
-        gamma = _dot(rt, us[j + 1])
+        gamma = _dot(rt, us[j + 1], rw)
         alpha = rho0 / gamma
         for k in range(j + 1):
             rs[k] = rs[k] - alpha * us[k + 1]
@@ -272,6 +303,7 @@ def bicgstabl(A, b, x0=None, tol=1e-8, maxiter=1000, pl=None, s: int = 2):
     minimal-residual part solves the small normal equations on the Gram
     matrix, read back once per cycle and solved on the host in
     float64."""
+    rw = _rows(A)
     l = s
     x, r0 = _prep(A, b, x0, pl)
     rt = r0
@@ -280,7 +312,7 @@ def bicgstabl(A, b, x0=None, tol=1e-8, maxiter=1000, pl=None, s: int = 2):
     alpha = _full(0.0, b)
     omega = 1.0
     i = 0
-    while i < maxiter and float(_nn(r0)) > tol:
+    while i < maxiter and float(_nn(r0, rw)) > tol:
         rho0 = -omega * rho0
         rs = [r0] + [None] * l
         us = [u0] + [None] * l
@@ -290,8 +322,8 @@ def bicgstabl(A, b, x0=None, tol=1e-8, maxiter=1000, pl=None, s: int = 2):
         dots = {}
         for i_ in range(1, l + 1):
             for j_ in range(i_, l + 1):
-                dots[i_, j_] = _dot(rs[i_], rs[j_])
-        z0 = [_dot(rs[0], rs[j_]) for j_ in range(1, l + 1)]
+                dots[i_, j_] = _dot(rs[i_], rs[j_], rw)
+        z0 = [_dot(rs[0], rs[j_], rw) for j_ in range(1, l + 1)]
         host = _host(torch.stack(list(dots.values()) + z0))
         Z = np.empty((l, l))
         for (i_, j_), v in zip(dots, host):
@@ -306,7 +338,7 @@ def bicgstabl(A, b, x0=None, tol=1e-8, maxiter=1000, pl=None, s: int = 2):
             r0_ = r0_ - g * rs[j]
         x, r0, u0 = x_, r0_, u0_
         i += l
-    return x, i, _nn(r0)
+    return x, i, _nn(r0, rw)
 
 
 def bicgstabl_gs(A, b, x0=None, tol=1e-8, maxiter=1000, pl=None,
@@ -316,6 +348,7 @@ def bicgstabl_gs(A, b, x0=None, tol=1e-8, maxiter=1000, pl=None,
     reference's ``bicgstabl_GS!`` (03_BiCGstabl.jl:16): MGS works on the
     residual vectors directly instead of the Gram matrix, whose
     conditioning is squared.  Its scalars stay on the device."""
+    rw = _rows(A)
     l = s
     x, r0 = _prep(A, b, x0, pl)
     rt = r0
@@ -324,7 +357,7 @@ def bicgstabl_gs(A, b, x0=None, tol=1e-8, maxiter=1000, pl=None,
     alpha = _full(0.0, b)
     omega = _full(1.0, b)
     i = 0
-    while i < maxiter and float(_nn(r0)) > tol:
+    while i < maxiter and float(_nn(r0, rw)) > tol:
         rho0 = -omega * rho0
         rs = [r0] + [None] * l
         us = [u0] + [None] * l
@@ -334,11 +367,11 @@ def bicgstabl_gs(A, b, x0=None, tol=1e-8, maxiter=1000, pl=None,
         gamma_p = [None] * (l + 1)
         for j in range(1, l + 1):
             for i_ in range(1, j):
-                tij = _dot(rs[j], rs[i_]) / sigma[i_]
+                tij = _dot(rs[j], rs[i_], rw) / sigma[i_]
                 tau[i_][j] = tij
                 rs[j] = rs[j] - tij * rs[i_]
-            sigma[j] = _dot(rs[j], rs[j])
-            gamma_p[j] = _dot(rs[0], rs[j]) / sigma[j]
+            sigma[j] = _dot(rs[j], rs[j], rw)
+            gamma_p[j] = _dot(rs[0], rs[j], rw) / sigma[j]
         gam = [None] * (l + 1)
         gam[l] = gamma_p[l]
         omega = gam[l]
@@ -362,7 +395,7 @@ def bicgstabl_gs(A, b, x0=None, tol=1e-8, maxiter=1000, pl=None,
             rs[0] = rs[0] - gamma_p[j] * rs[j]
         r0, u0 = rs[0], us[0]
         i += l
-    return x, i, _nn(r0)
+    return x, i, _nn(r0, rw)
 
 
 # ---------------------------------------------------------------------------
@@ -375,16 +408,20 @@ def idrs(A, b, x0=None, tol=1e-8, maxiter=1000, pl=None, s: int = 4,
     [s, n] shadow space (default: normal numbers seeded 0).  The s x s
     matrix M and the projections f = P r live on the host in float64:
     one readback of f per cycle and of P g_k per inner step."""
+    rw = _rows(A)
     x, r = _prep(A, b, x0, pl)
-    n = b.shape[0]
+    n = b.shape[0] if rw is None else rw.n
     P = _shadow(P, 0, (s, n), b)
+    if rw is not None:
+        P = rw.local(P)             # the rank's rows of the shadow space
+    n = b.shape[0]
     G = torch.zeros((s, n), dtype=b.dtype, device=b.device)
     U = torch.zeros_like(G)
     M = np.eye(s)
     omega = _full(1.0, b)
     i = 0
-    while i < maxiter and float(_nn(r)) > tol:
-        f = _host(P @ r)
+    while i < maxiter and float(_nn(r, rw)) > tol:
+        f = _host(_mdot(P, r, rw))
         for k in range(s):
             # lower-triangular M[k:, k:] c = f[k:], zero above k
             c = np.zeros(s)
@@ -395,12 +432,12 @@ def idrs(A, b, x0=None, tol=1e-8, maxiter=1000, pl=None, s: int = 4,
             u_k = q + omega * v
             g_k = _pl(pl, A.mv(u_k))
             for i2 in range(k):      # biorthogonalize against P[:k]
-                alpha = _dot(P[i2], g_k) / float(M[i2, i2])
+                alpha = _dot(P[i2], g_k, rw) / float(M[i2, i2])
                 g_k = g_k - alpha * G[i2]
                 u_k = u_k - alpha * U[i2]
             G[k] = g_k
             U[k] = u_k
-            m_col = _host(P @ g_k)
+            m_col = _host(_mdot(P, g_k, rw))
             M[k:, k] = m_col[k:]
             beta = float(f[k] / M[k, k])
             r = r - beta * g_k
@@ -409,11 +446,11 @@ def idrs(A, b, x0=None, tol=1e-8, maxiter=1000, pl=None, s: int = 4,
         # entering G_{j+1}
         v = r
         t = _pl(pl, A.mv(v))
-        omega = _modify_omega(t, r)
+        omega = _modify_omega(t, r, rw)
         x = x + omega * v
         r = r - omega * t
         i += s + 1
-    return x, i, _nn(r)
+    return x, i, _nn(r, rw)
 
 
 def idrs_original(A, b, x0=None, tol=1e-8, maxiter=1000, pl=None,
@@ -423,6 +460,7 @@ def idrs_original(A, b, x0=None, tol=1e-8, maxiter=1000, pl=None,
     against the full shadow matrix, the counterpart of the reference's
     ``idrs_original!`` (04_IDRs.jl:97-166).  ``P`` as in ``idrs``; M
     and f on the host in float64."""
+    _whole_only(A, "idrs_original")
     x, r = _prep(A, b, x0, pl)
     n = b.shape[0]
     P = _shadow(P, 0, (s, n), b)
@@ -495,22 +533,23 @@ def gmres(A, b, x0=None, tol=1e-8, maxiter=1000, pl=None, s: int = 20):
     """Restarted GMRES(s) with classical Gram-Schmidt Arnoldi on the
     device; the Hessenberg matrix is read back once per cycle and its
     Givens QR and triangular solve run on the host in float64."""
+    rw = _rows(A)
     restart = s
     x = torch.zeros_like(b) if x0 is None else x0
     n = b.shape[0]
     i = 0
     r = _pl(pl, b - A.mv(x))
-    while i < maxiter and float(_nn(r)) > tol:
-        beta = _norm(r)
+    while i < maxiter and float(_nn(r, rw)) > tol:
+        beta = _norm(r, rw)
         V = torch.zeros((restart + 1, n), dtype=b.dtype, device=b.device)
         V[0] = r / _nonzero(beta)
         H = torch.zeros((restart + 1, restart), dtype=b.dtype,
                         device=b.device)
         for j in range(restart):
             w = _pl(pl, A.mv(V[j]))
-            hcol = V[:j + 1] @ w
+            hcol = _mdot(V[:j + 1], w, rw)
             w = w - (hcol[:, None] * V[:j + 1]).sum(0)
-            hnorm = _norm(w)
+            hnorm = _norm(w, rw)
             H[:j + 1, j] = hcol
             H[j + 1, j] = hnorm
             V[j + 1] = w / _nonzero(hnorm)
@@ -520,7 +559,7 @@ def gmres(A, b, x0=None, tol=1e-8, maxiter=1000, pl=None, s: int = 20):
         x = x + _dev(y, b) @ V[:restart]
         i += restart
         r = _pl(pl, b - A.mv(x))
-    return x, i, _nn(r)
+    return x, i, _nn(r, rw)
 
 
 # ---------------------------------------------------------------------------
@@ -528,6 +567,7 @@ def gmres(A, b, x0=None, tol=1e-8, maxiter=1000, pl=None, s: int = 20):
 # ---------------------------------------------------------------------------
 
 def lsqr(A, b, x0=None, tol=1e-8, maxiter=1000, pl=None):
+    _whole_only(A, "lsqr")
     del pl  # LSQR runs unpreconditioned (as the reference)
     x = torch.zeros_like(b) if x0 is None else x0
     sqrt_n = math.sqrt(b.shape[0])
@@ -565,29 +605,31 @@ def lsqr(A, b, x0=None, tol=1e-8, maxiter=1000, pl=None):
 # ---------------------------------------------------------------------------
 
 def cgs(A, b, x0=None, tol=1e-8, maxiter=1000, pl=None):
+    rw = _rows(A)
     x, r = _prep(A, b, x0, pl)
     r0 = r
     rho = alpha = _full(1.0, b)
     u = p = torch.zeros_like(b)
     i = 0
-    while i < maxiter and float(_nn(r)) > tol:
+    while i < maxiter and float(_nn(r, rw)) > tol:
         rhobar = rho
-        rho = _dot(r, r0)
+        rho = _dot(r, r0, rw)
         beta = rho / rhobar
         s_ = r + beta * p
         u = s_ + beta * (p + beta * u)
         v = _pl(pl, A.mv(u))
-        alpha = rho / _dot(v, r0)
+        alpha = rho / _dot(v, r0, rw)
         p = s_ - alpha * v
         x = x + alpha * (p + s_)
         r = _pl(pl, b - A.mv(x))
         i += 1
-    return x, i, _nn(r)
+    return x, i, _nn(r, rw)
 
 
 def cgs2(A, b, x0=None, tol=1e-8, maxiter=1000, pl=None, s0=None):
     """CGS2 with a second, random shadow vector ``s0`` (default: normal
     numbers seeded 1)."""
+    _whole_only(A, "cgs2")
     x, r = _prep(A, b, x0, pl)
     r0 = r
     s0 = _shadow(s0, 1, b.shape, b)
@@ -626,6 +668,7 @@ def tfqmr(A, b, x0=None, tol=1e-8, maxiter=1000, pl=None, jitter=None):
     avoids the exact Lanczos breakdown of r0* = r0 on symmetric
     systems; tau is the quasi-residual bound of the stop test, and the
     true residual is returned at exit."""
+    _whole_only(A, "tfqmr")
     x, r = _prep(A, b, x0, pl)
     r0 = r + 0.1 * _norm(r) * _shadow(jitter, 2, b.shape, b)
     sqrt_n = math.sqrt(b.shape[0])

@@ -306,9 +306,14 @@ def _stencil_to_dense(coefs: torch.Tensor, shape: Tuple[int, ...],
 
 def _apply_level(hier: MGHierarchy, state, level: int,
                  x: torch.Tensor) -> torch.Tensor:
-    """Apply the level operator to x [C, *S_level]."""
+    """Apply the level operator to x [C, *S_level] (at a row-sharded fine
+    level, x [C, w] the window's rows: the product gathers x and runs
+    the window's rows of A)."""
     if level == 0 and "A" in state[0]:
         A: OffsetMatrix = state[0]["A"]
+        rows = state[0].get("rows")
+        if rows is not None:
+            return A.mv(rows.gather(x.reshape(-1))).view(x.shape)
         return A.mv(x.reshape(-1)).view(x.shape)
     return _stencil_mv(state[level]["coefs"], x, hier.offsets, hier.radius)
 
@@ -325,16 +330,28 @@ def _color_index(shape: Tuple[int, ...], off: Tuple[int, ...], m: int,
 
 
 def _masked_prolong(hier, state, level, xc):
-    """P' v = M_level P v: prolong to ``level``, zero ghost slots."""
+    """P' v = M_level P v: prolong to ``level``, zero ghost slots (at a
+    row-sharded fine level, the window's rows of the whole
+    prolongation)."""
     x = prolong(xc, hier.shapes[level])
+    rows = state[level].get("rows")
+    if rows is not None:
+        x = rows.lattice_local(x, 1)
     mask = state[level].get("mask")
     return x if mask is None else x * mask
 
 
 def _masked_restrict(hier, state, level, xf):
-    """R' r = P'^T r = restrict(M_level r) (exact adjoint of above)."""
+    """R' r = P'^T r = restrict(M_level r) (exact adjoint of above; at a
+    row-sharded fine level the masked window is gathered first, so the
+    coarse levels run whole on every rank)."""
     mask = state[level].get("mask")
-    return restrict(xf if mask is None else xf * mask)
+    xf = xf if mask is None else xf * mask
+    rows = state[level].get("rows")
+    if rows is not None:
+        xf = rows.gather(xf.reshape(-1)).view(
+            (hier.channels,) + hier.shapes[level])
+    return restrict(xf)
 
 
 def _probe_level(hier: MGHierarchy, state, level: int,
@@ -563,8 +580,13 @@ def _vcycle_level(hier, state, level, b):
 
 
 def vcycle(hier: MGHierarchy, state: tuple, b: torch.Tensor) -> torch.Tensor:
-    """One V(nu1, nu2) cycle on the flat residual vector: M b ~= A^-1 b."""
-    shape = (hier.channels,) + hier.shapes[0]
+    """One V(nu1, nu2) cycle on the flat residual vector: M b ~= A^-1 b.
+    With a row-sharded state (``parallel.rowshard.shard_mg_state``) b and
+    the result are the window's rows."""
+    if state[0].get("rows") is not None:
+        shape = (hier.channels, -1)
+    else:
+        shape = (hier.channels,) + hier.shapes[0]
     return _vcycle_level(hier, state, 0, b.reshape(shape)).reshape(-1)
 
 
@@ -581,6 +603,10 @@ class MGOperator:
     hier: MGHierarchy
 
     def mv(self, v: torch.Tensor) -> torch.Tensor:
+        rows = self.state[0].get("rows")
+        if rows is not None:
+            # row-sharded: the window's rows of A on the gathered M v
+            return self.A.mv(rows.gather(vcycle(self.hier, self.state, v)))
         return self.A.mv(vcycle(self.hier, self.state, v))
 
     def apply_m(self, y: torch.Tensor) -> torch.Tensor:

@@ -328,11 +328,15 @@ def slot_sums(prod: torch.Tensor, ptr_host: tuple, vec: int,
     return acc
 
 
-def build_pack_plan(keep: torch.Tensor, group, vec: int) -> PackPlan:
+def build_pack_plan(keep: torch.Tensor, group, vec: int,
+                    rows: Optional[Tuple[int, int]] = None) -> PackPlan:
     """The pack plan of one dense group on keep's device.  ``keep``: bool
     [G, n_off, n_cp], True at the structural entries of the group's
     storage (``OffsetMatrix.structural_mask``); ``vec``: slots per
-    16-byte load (2 for float64, 4 for float32)."""
+    16-byte load (2 for float64, 4 for float32).  ``rows``: (c0, c1),
+    a row window: only the rows (pd, r) with c0 <= r < c1 are packed
+    (the plan of a rank's rows, ``block_offset.WindowLayout``); the
+    plan of the window (0, n_cp) is the whole plan."""
     t0 = time.perf_counter()
     dev = keep.device
     G, n_off, C, n_cp = (len(group.units), group.n_off, group.n_vars,
@@ -340,6 +344,13 @@ def build_pack_plan(keep: torch.Tensor, group, vec: int) -> PackPlan:
     if tuple(keep.shape) != (G, n_off, n_cp) or keep.dtype != torch.bool:
         raise ValueError(f"keep {tuple(keep.shape)} {keep.dtype} is not a "
                          f"bool mask of {(G, n_off, n_cp)}")
+    c0, c1 = (0, n_cp) if rows is None else (int(rows[0]), int(rows[1]))
+    if not 0 <= c0 <= c1 <= n_cp:
+        raise ValueError(f"row window {(c0, c1)} outside [0, {n_cp}]")
+    if (c0, c1) != (0, n_cp):
+        keep = keep.clone()
+        keep[:, :, :c0] = False
+        keep[:, :, c1:] = False
     chan = [[g for g, (pd, _pb) in enumerate(group.units) if pd == c]
             for c in range(C)]
     maxu = max(1, max(len(u) for u in chan))
@@ -383,6 +394,10 @@ def build_pack_plan(keep: torch.Tensor, group, vec: int) -> PackPlan:
     # within a window: longest rows first, rows of one code list together
     order = torch.argsort(((ids // WINDOW) * e_top + (e_top - 1 - E))
                           * list_len.numel() + lst_nat, stable=True)
+    if (c0, c1) != (0, n_cp):
+        r_of = order % n_cp
+        order = order[(r_of >= c0) & (r_of < c1)]
+        del r_of
     del ids, E
     rows, ptr_host = slice_rows(
         order, n_units * ((L_nat + vec - 1) // vec * vec), vec)

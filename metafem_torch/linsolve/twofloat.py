@@ -197,29 +197,31 @@ def df_dot2(pairs) -> DF:
     return df_normalize(s, c)
 
 
-def df_pack(vals: DF, layout) -> list:
+def df_pack(vals: DF, layout, window=None) -> list:
     """Per dense group of ``layout``, the structural values of the pair
     ``vals`` packed as (hi, lo) slots (``offset_spmv.pack_df``) over the
     group's float64 pack plan, and last, where the layout has a BSR
     tail, the tail's pair packed over its float64 tail plan: gathered
-    once per matrix, then passed to every ``df_offset_mv`` of it."""
+    once per matrix, then passed to every ``df_offset_mv`` of it.
+    ``window``: a rank's rows (``block_offset.WindowLayout``; None: the
+    whole matrix), ``vals`` then its storage and the plans the
+    window's."""
     from . import offset_spmv
     from .block_offset import OffsetMatrix
-    A = OffsetMatrix.from_values(vals.hi, layout)
-    plans = A.pack_plans(vec=offset_spmv.DF_VEC)
-    out = []
-    for grp, plan in zip(layout.pallas_groups, plans):
-        sl = slice(grp.base, grp.base + len(grp.units) * grp.n_off * grp.n_cp)
-        out.append(offset_spmv.pack_df(vals.hi[sl], vals.lo[sl], plan))
+    A = OffsetMatrix.from_values(vals.hi, layout, window)
+    w = A.window
+    out = [offset_spmv.pack_df(vals.hi[w.group_range(i)],
+                               vals.lo[w.group_range(i)], plan)
+           for i, plan in enumerate(A.pack_plans(vec=offset_spmv.DF_VEC))]
     if layout.blk_b:
         out.append(offset_spmv.pack_df(
-            vals.hi[layout.n_dense:], vals.lo[layout.n_dense:],
+            vals.hi[w.n_dense:], vals.lo[w.n_dense:],
             A.tail_plan(vec=offset_spmv.DF_VEC)))
     return out
 
 
 def df_offset_mv(vals: DF, layout, x: DF,
-                 packed: Optional[list] = None) -> DF:
+                 packed: Optional[list] = None, window=None) -> DF:
     """y = A @ x with the matrix values and the vector as DF pairs, the
     refined residual's product: each dense group through
     ``offset_spmv.group_mv_df`` (per-unit compensated sums over the
@@ -228,13 +230,15 @@ def df_offset_mv(vals: DF, layout, x: DF,
     entries, df_added into y), the scalar COO tail as one float64 sorted
     segment sum over the layout's device tables, split back and
     df_added.  ``packed``: the pair's ``df_pack`` (packed here when
-    None)."""
+    None).  ``window``: a rank's rows (``block_offset.WindowLayout``):
+    ``vals`` is its storage, x stays whole and y is the window's rows."""
     from . import bsr_tail, offset_spmv
-    from .block_offset import OffsetMatrix
-    A = OffsetMatrix.from_values(vals.hi, layout)
+    from .block_offset import OffsetMatrix, sorted_segment_sum
+    A = OffsetMatrix.from_values(vals.hi, layout, window)
+    w = A.window
     plans = A.pack_plans(vec=offset_spmv.DF_VEC)
     if packed is None:
-        packed = df_pack(vals, layout)
+        packed = df_pack(vals, layout, window)
     covered = sum(g.n_vars * g.n_cp for g in layout.pallas_groups)
     new = torch.empty if covered == layout.n else torch.zeros
     y_hi = new(layout.n, dtype=torch.float32, device=x.hi.device)
@@ -252,11 +256,13 @@ def df_offset_mv(vals: DF, layout, x: DF,
                             A.tail_plan(vec=offset_spmv.DF_VEC))
     elif layout.n_coo:
         # the (small) COO tail in float64; lattice meshes have none
-        from .block_offset import sorted_segment_sum
         f64 = torch.float64
-        cv = (vals.hi[layout.n_dense:].to(f64)
-              + vals.lo[layout.n_dense:].to(f64))
-        xv = x.hi[A.coo_cols].to(f64) + x.lo[A.coo_cols].to(f64)
-        t64 = sorted_segment_sum(cv * xv, A._tail_plan("rows"), layout.n)
+        t = w.tables(vals.hi.device)
+        n0, cols, plan = w.n_dense, t["tail_cols"], t["tail_plan"]
+        cv = vals.hi[n0:].to(f64) + vals.lo[n0:].to(f64)
+        xv = x.hi[cols].to(f64) + x.lo[cols].to(f64)
+        t64 = sorted_segment_sum(cv * xv, plan, layout.n)
         y = df_add(y, df_from_f64(t64))
+    if not w.whole:
+        y = DF(w.local(y.hi), w.local(y.lo))
     return y

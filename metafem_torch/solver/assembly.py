@@ -39,12 +39,13 @@ from ..symbolics.registry import (CONTROLPOINT_VAR, GLOBAL_VAR,
 from ..symbolics.tensor_table import TensorTable
 from .global_assembly import GlobalPattern, WPGlobalInfo
 from .df_lowering import DFLoweringContext, assemble_part_df, build_env_df
-from .lattice_reduce import (gather_lattice_nodes, scan_apply_group,
-                             scan_apply_group_df)
+from .lattice_reduce import (fit_stream_columns, gather_lattice_nodes,
+                             scan_apply_group, scan_apply_group_df)
 from .local_assembly import (AssembleBilinear, AssembleWeakform,
                              ExtervarInfo, InnervarInfo, LocalAssembly)
 from .lowering import LoweringContext
-from .scatter import apply_device_maps, apply_device_maps_df
+from .scatter import (apply_device_maps, apply_device_maps_df,
+                      build_compact_gather_reduce, maps_to_device)
 
 
 @dataclasses.dataclass
@@ -57,6 +58,8 @@ class CompiledWP:
     bdy_parts: Dict[int, List[Tuple[int, np.ndarray]]]
     #: host copy of the element control-point ids [E, na]
     el_cp: np.ndarray = None
+    #: the workpiece's lattice shape (None: unstructured)
+    lattice_shape: tuple = None
 
 
 def _build_env(tb: TensorTable, wp_state: dict, part_state: dict,
@@ -213,12 +216,14 @@ def _phase_bilinears(wf: AssembleWeakform, la: LocalAssembly,
 
 
 def collect_phase_streams(compiled_wps: List[CompiledWP],
-                          pattern: GlobalPattern, phase: str):
+                          pattern: GlobalPattern, phase: str,
+                          volume: bool = True, boundary: bool = True):
     """Host mirror of _run's contribution order, one entry per stream:
     dicts {kind: 'r'|'k', slots: [E, n_cols] int64, volume: bool,
     wp: index}.  The order matches _run's emission exactly (volume weak
     form first, then boundary parts; residual positions then K units,
-    both sorted)."""
+    both sorted).  ``volume``/``boundary``: the parts to list (the
+    element-sharded assembly reduces them apart)."""
     streams: List[dict] = []
     for w_i, cw in enumerate(compiled_wps):
         la, info = cw.la, cw.info
@@ -239,11 +244,98 @@ def collect_phase_streams(compiled_wps: List[CompiledWP],
                          + u * info.unitsize).reshape(-1)
                     ).reshape(B, -1)))
 
-        handle(la.assembled_weakform, cw.el_cp, info.pair_slot, True)
+        if volume:
+            handle(la.assembled_weakform, cw.el_cp, info.pair_slot, True)
+        if not boundary:
+            continue
         for bg_id, wf in la.assembled_boundary_weakform_pairs.items():
             for (_, els) in cw.bdy_parts[bg_id]:
                 handle(wf, cw.el_cp[els], info.pair_slot[els], False)
     return streams
+
+
+def build_phase_maps(streams: List[dict], compiled_wps: List[CompiledWP],
+                     pattern: GlobalPattern, device) -> tuple:
+    """(fast, entry): the reduction maps of the streams of one assembly
+    phase (``collect_phase_streams``).  ``fast``: {"r"|"k": {stream
+    index: (FastStream list, rest columns)}}, lattice strided adds where
+    a volume stream's slot columns are affine in the lattice index;
+    ``entry``: gather maps on ``device`` for the rest, and under
+    "rest_cols" the remaining columns of each split stream as indices
+    there."""
+    seg_bases = np.asarray([s[4] for s in pattern.offset_layout.segments])
+    seg_ncp = np.asarray([s[2] for s in pattern.offset_layout.segments])
+    order = np.argsort(seg_bases)
+    seg_bases, seg_ncp = seg_bases[order], seg_ncp[order]
+
+    def k_block_of(slot):
+        j = np.searchsorted(seg_bases, slot, side="right") - 1
+        if j < 0 or slot >= seg_bases[j] + seg_ncp[j]:
+            return None
+        return int(seg_bases[j])
+
+    fast = {"r": {}, "k": {}}
+    rest = {"r": [], "k": []}
+    rest_cols_dev = {}
+    counters = {"r": 0, "k": 0}
+    for s in streams:
+        kind = s["kind"]
+        si = counters[kind]
+        counters[kind] += 1
+        fs_list, rest_cols = None, None
+        lattice_shape = compiled_wps[s["wp"]].lattice_shape
+        if s["volume"] and lattice_shape is not None:
+            if kind == "k":
+                block_of = k_block_of
+            else:
+                info = pattern.wp_infos[s["wp"]]
+
+                def block_of(slot, info=info):
+                    rel = slot - info.dof_offset
+                    if rel < 0 or rel >= info.n_vars * info.n_cp:
+                        return None
+                    return (info.dof_offset
+                            + (rel // info.n_cp) * info.n_cp)
+            slots2 = s["slots"].reshape(s["slots"].shape[0], -1)
+            fs_list, rest_cols = fit_stream_columns(
+                slots2, lattice_shape, block_of)
+        if fs_list:
+            # per-column split: fitting columns reduce by strided adds,
+            # the rest (e.g. COO-spilled offsets) via gather
+            fast[kind][si] = (fs_list, rest_cols)
+            if rest_cols.size:
+                rest[kind].append(slots2[:, rest_cols].reshape(-1))
+                rest_cols_dev[kind, si] = torch.as_tensor(
+                    rest_cols.astype(np.int64), device=device)
+        else:
+            rest[kind].append(s["slots"].reshape(-1))
+
+    entry = {"rest_cols": rest_cols_dev}
+    for kind, num in (("r", pattern.basicfield_size),
+                      ("k", pattern.n_storage)):
+        if not rest[kind]:
+            continue
+        gr, touched = build_compact_gather_reduce(
+            np.concatenate(rest[kind]), num)
+        entry[kind] = maps_to_device(gr, device)
+        if touched is not None:
+            entry[kind + "_touched"] = torch.as_tensor(
+                touched.astype(np.int64), device=device)
+    return fast, entry
+
+
+def gather_fast_maps(el_cp: np.ndarray, lattice_shape, n_cp: int):
+    """The lattice strided node reads of a volume part (el_cp [E, na]),
+    or None when a column does not fit (then the generic gather)."""
+    if lattice_shape is None:
+        return None
+
+    def in_block(slot):
+        return 0 if 0 <= slot < n_cp else None
+
+    fs_list, rest_cols = fit_stream_columns(el_cp.astype(np.int64),
+                                            lattice_shape, in_block)
+    return fs_list if fs_list and rest_cols.size == 0 else None
 
 
 def collect_phase_slots(compiled_wps: List[CompiledWP],
@@ -318,21 +410,18 @@ def make_updaters(tb: TensorTable, compiled_wps: List[CompiledWP],
     fast_maps = fast_maps if fast_maps is not None else {}
     bfs = pattern.basicfield_size
 
-    def _run(state, phase: str):
-        """(residue, K) of one phase.  ``<phase>_df``: the phase's
-        residues in two-float arithmetic from DF tables (``state["wp"]``)
-        and a DF ``x_star``, returned as a DF residue and a 0-d K.
-        ``state["r_compact"]``: the residue over the phase's touched rows
-        only (``maps[phase]["r_touched"]``, the caller expands it) and a
-        0-d K; for phases without lattice residual streams."""
-        df_mode = phase.endswith("_df")
-        if df_mode:
-            phase = phase[:-3]
+    def _contributions(state, phase: str, df_mode: bool, volume: bool,
+                       boundary: bool, gather=None):
+        """The per-stream contributions of one phase in the emission
+        order of ``collect_phase_streams``: residual [B, na] (DF pairs in
+        a two-float phase) and K blocks [B, na, nb].  ``gather``: the
+        lattice node reads per workpiece (default: the compiled ones)."""
         x_star = state["x_star"]
         dev = x_star.hi.device if df_mode else x_star.device
-        dtype = torch.float32 if df_mode else x_star.dtype
         t, dt, K_params = state["t"], state["dt"], state["K_params"]
         global_vars = state.get("global_vars", {})
+        if gather is None:
+            gather = fast_maps.get("gather", {})
 
         r_vals: List[torch.Tensor] = []
         k_vals: List[torch.Tensor] = []
@@ -356,7 +445,7 @@ def make_updaters(tb: TensorTable, compiled_wps: List[CompiledWP],
                     return
                 gather_fast = None
                 if not is_boundary:
-                    gather_fast = fast_maps.get("gather", {}).get(w_i)
+                    gather_fast = gather.get(w_i)
                 if df_mode:
                     env = build_env_df(tb, wp_state, part_state, cw,
                                        inner_infos, exter_infos, x_star,
@@ -382,28 +471,19 @@ def make_updaters(tb: TensorTable, compiled_wps: List[CompiledWP],
                 for u in sorted(kel_units):
                     k_vals.append(kel_units[u])            # [B, na, nb]
 
-            do_wf(la.assembled_weakform, wp_state["el"], False)
+            if volume:
+                do_wf(la.assembled_weakform, wp_state["el"], False)
+            if not boundary:
+                continue
             for bg_id, wf in la.assembled_boundary_weakform_pairs.items():
                 for part_state in wp_state["bdy"][bg_id]:
                     do_wf(wf, part_state, True)
+        return r_vals, k_vals
 
-        device_maps = state["maps"][phase]
-        fast = fast_maps.get(phase, {})
-        if df_mode:
-            return (_reduce_df(r_vals, fast.get("r", {}), bfs, device_maps,
-                               dev),
-                    torch.zeros((), dtype=dtype, device=dev))
-        if state.get("r_compact") and "r_touched" in device_maps:
-            if fast.get("r"):
-                raise ValueError(f"r_compact: phase {phase!r} has lattice "
-                                 f"residual streams")
-            n_touched = device_maps["r_touched"].shape[0]
-            data = (torch.cat([v.reshape(-1) for v in r_vals]) if r_vals
-                    else torch.zeros(0, dtype=dtype, device=dev))
-            return (apply_device_maps(device_maps.get("r"), data,
-                                      n_touched),
-                    torch.zeros((), dtype=dtype, device=dev))
-
+    def _reduce(r_vals, k_vals, device_maps: dict, fast: dict, dtype, dev):
+        """(residue, K) of the contributions: strided lattice adds for
+        the fitting columns, in list order, then the gather maps for the
+        rest."""
         def reduce_streams(vals_list, fast_dict, kind, total):
             """Strided lattice adds for the fitting columns, in list
             order; returns (partial sum, flat non-fitting remainders)."""
@@ -444,6 +524,112 @@ def make_updaters(tb: TensorTable, compiled_wps: List[CompiledWP],
         K, rest_k = reduce_streams(k_vals, fast.get("k", {}), "k",
                                    pattern.n_storage)
         K = add_rest(K, rest_k, "k", pattern.n_storage)
+        return residue, K
+
+    def _shard_maps(shard: dict, phase: str, part: str, device) -> tuple:
+        """(fast, entry, gather) of the rank's element block
+        (``part="volume"``, maps and node reads rebuilt for the block) or
+        of the whole boundary (``"boundary"``), built once per shard,
+        phase and device."""
+        key = (phase, part, str(device))
+        cache = shard["maps"]
+        if key not in cache:
+            if part == "volume":
+                cws = []
+                for cw, (e0, e1) in zip(compiled_wps, shard["ranges"]):
+                    info = dataclasses.replace(
+                        cw.info, pair_slot=cw.info.pair_slot[e0:e1])
+                    cws.append(dataclasses.replace(cw, el_cp=cw.el_cp[e0:e1],
+                                                   info=info))
+                streams = collect_phase_streams(cws, pattern, phase,
+                                                boundary=False)
+                gather = {}
+                for w_i, cw in enumerate(cws):
+                    fs = gather_fast_maps(cw.el_cp, cw.lattice_shape,
+                                          cw.info.n_cp)
+                    if fs is not None:
+                        gather[w_i] = fs
+            else:
+                cws = compiled_wps
+                streams = collect_phase_streams(cws, pattern, phase,
+                                                volume=False)
+                gather = {}
+            fast, entry = build_phase_maps(streams, cws, pattern, device)
+            cache[key] = (fast, entry, gather)
+        return cache[key]
+
+    def _run_sharded(state, phase: str):
+        """(residue, K) of one phase of an element-sharded state: the
+        rank's element block reduced into a partial sum, the collective
+        (an all-reduce, or with ``state["row_window"]`` a reduce-scatter
+        onto the rank's rows and storage), then the whole boundary, added
+        once, and the ghost regularizer."""
+        from ..parallel import comm
+        from ..parallel.rowshard import constrain
+        shard = state["el_shard"]
+        rows = state.get("row_window")
+        x_star = state["x_star"]
+        dtype, dev = x_star.dtype, x_star.device
+        fast, entry, gather = _shard_maps(shard, phase, "volume", dev)
+        r_vals, k_vals = _contributions(state, phase, False, True, False,
+                                        gather=gather)
+        residue, K = _reduce(r_vals, k_vals, entry, fast, dtype, dev)
+        if rows is not None:
+            residue = rows.reduce_scatter_rows(residue)
+            K = rows.reduce_scatter_storage(K)
+        else:
+            residue = comm.all_reduce(residue, shard["mesh"])
+            K = comm.all_reduce(K, shard["mesh"])
+        fast, entry, _ = _shard_maps(shard, phase, "boundary", dev)
+        r_vals, k_vals = _contributions(state, phase, False, False, True)
+        if r_vals or k_vals:
+            r_b, K_b = _reduce(r_vals, k_vals, entry, fast, dtype, dev)
+            residue = residue + constrain(rows, r_b)
+            K = K + constrain(rows, K_b, storage=True)
+        if phase == "lin" and state.get("ghost_diag") is not None:
+            K = K + constrain(rows, state["ghost_diag"], storage=True)
+        return residue, K
+
+    def _run(state, phase: str):
+        """(residue, K) of one phase.  ``<phase>_df``: the phase's
+        residues in two-float arithmetic from DF tables (``state["wp"]``)
+        and a DF ``x_star``, returned as a DF residue and a 0-d K.
+        ``state["r_compact"]``: the residue over the phase's touched rows
+        only (``maps[phase]["r_touched"]``, the caller expands it) and a
+        0-d K; for phases without lattice residual streams.  A state
+        whose volume tables are a rank's element block
+        (``parallel.shard_domain_state``) runs ``_run_sharded``."""
+        df_mode = phase.endswith("_df")
+        if df_mode:
+            phase = phase[:-3]
+        sharded = any("el_range" in w for w in state["wp"])
+        if sharded:
+            if df_mode or state.get("r_compact"):
+                raise ValueError("two-float and compact phases run on "
+                                 "whole tables, not a rank's block")
+            return _run_sharded(state, phase)
+        x_star = state["x_star"]
+        dev = x_star.hi.device if df_mode else x_star.device
+        dtype = torch.float32 if df_mode else x_star.dtype
+        r_vals, k_vals = _contributions(state, phase, df_mode, True, True)
+
+        device_maps = state["maps"][phase]
+        fast = fast_maps.get(phase, {})
+        if df_mode:
+            return (_reduce_df(r_vals, fast.get("r", {}), bfs, device_maps,
+                               dev),
+                    torch.zeros((), dtype=dtype, device=dev))
+        if state.get("r_compact") and "r_touched" in device_maps:
+            if fast.get("r"):
+                raise ValueError(f"r_compact: phase {phase!r} has lattice "
+                                 f"residual streams")
+            n_touched = device_maps["r_touched"].shape[0]
+            data = (torch.cat([v.reshape(-1) for v in r_vals]) if r_vals
+                    else torch.zeros(0, dtype=dtype, device=dev))
+            return (apply_device_maps(device_maps.get("r"), data,
+                                      n_touched),
+                    torch.zeros((), dtype=dtype, device=dev))
+        residue, K = _reduce(r_vals, k_vals, device_maps, fast, dtype, dev)
         if phase == "lin" and state.get("ghost_diag") is not None:
             # unit diagonal on ghost (unoccupied lattice) DOF rows
             K = K + state["ghost_diag"]

@@ -95,17 +95,16 @@ from ..symbolics.registry import (EXTERNAL_VAR, INTEGRATION_POINT_VAR,
 from ..symbolics.simplify import unroll_and_simplify
 from ..symbolics.tensor_table import TensorTable
 from ..symbolics.weakform import BilinearForm, build_weakform
-from .assembly import (CompiledWP, _build_env, collect_phase_streams,
+from .assembly import (CompiledWP, _build_env, build_phase_maps,
+                       collect_phase_streams, gather_fast_maps,
                        make_updaters)
 from .df_lowering import df_tables
 from .geometry import update_element_geometry, update_facet_geometry
 from .global_assembly import (GlobalPattern, assemble_x, build_global_pattern,
                               dessemble_x)
-from .lattice_reduce import fit_stream_columns
 from .local_assembly import (LocalAssembly, _extervar_info, _innervar_info,
                              extract_words, initialize_local_assembly)
 from .lowering import LoweringContext
-from .scatter import build_compact_gather_reduce, maps_to_device
 from .time_domain import (GeneralAlpha, initialize_dx, normalized_norm,
                           update_dx, x_star_of)
 
@@ -329,9 +328,16 @@ class FEM_Domain:
 
     def mesh_classical(self, wp_ids: Optional[Sequence[int]] = None,
                        itp_order: int = 1, itg_order: int = 2,
-                       itp_type: str = "Lagrange") -> None:
+                       itp_type: str = "Lagrange",
+                       lattice_pad: int = 1) -> None:
         """Build element tables + runtime mesh (mesh_Classical,
-        unstructured_mesh/2_Interface.jl:7-39)."""
+        unstructured_mesh/2_Interface.jl:7-39).
+
+        ``lattice_pad``: round the leading lattice axis up to a multiple
+        (ghost planes), or on an unstructured mesh the control-point
+        count (ghost control points), so that the DOF vector and the
+        storage split evenly over that many ranks: pass the rank count
+        when the domain will be row-sharded (parallel/rowshard.py)."""
         ids = range(len(self.workpieces)) if wp_ids is None else wp_ids
         for wp_id in ids:
             wp = self.workpieces[wp_id]
@@ -340,7 +346,8 @@ class FEM_Domain:
             wp.disc = initialize_classical_element(
                 self.dim, wp.geo.shape, itp_order,
                 wp.local_assembly.max_sd_order, itg_order, itp_type)
-            wp.mesh = build_wp_mesh(wp.geo, wp.disc, wp.boundary_facets)
+            wp.mesh = build_wp_mesh(wp.geo, wp.disc, wp.boundary_facets,
+                                    lattice_pad=lattice_pad)
             # coordinate columns (built-in controlpoint vars x, y, z)
             for d in range(self.dim):
                 wp.mesh.fields[_COORD_NAMES[d]] = wp.mesh.cp_coords[:, d]
@@ -380,7 +387,8 @@ class FEM_Domain:
             CompiledWP(disc=wp.disc, la=wp.local_assembly,
                        info=self.pattern.wp_infos[i],
                        bdy_parts=wp.bdy_parts,
-                       el_cp=wp.mesh.el_cp.astype(np.int64))
+                       el_cp=wp.mesh.el_cp.astype(np.int64),
+                       lattice_shape=wp.mesh.lattice_shape)
             for i, wp in enumerate(self.workpieces)]
         self._fast_maps = {"gather": {}}
         self._k_linear, self._res_k, self._run_phase = make_updaters(
@@ -388,17 +396,9 @@ class FEM_Domain:
             self.functions, fast_maps=self._fast_maps)
         # lattice node-gather fast path: el_cp columns as strided slices
         for w_i, wp in enumerate(self.workpieces):
-            mesh = wp.mesh
-            if mesh.lattice_shape is None:
-                continue
-            n_cp = mesh.n_cp
-
-            def in_block(slot, n_cp=n_cp):
-                return 0 if 0 <= slot < n_cp else None
-
-            fs_list, rest_cols = fit_stream_columns(
-                mesh.el_cp.astype(np.int64), mesh.lattice_shape, in_block)
-            if fs_list and rest_cols.size == 0:   # node reads need ALL
+            fs_list = gather_fast_maps(wp.mesh.el_cp, wp.mesh.lattice_shape,
+                                       wp.mesh.n_cp)
+            if fs_list is not None:               # node reads need ALL
                 self._fast_maps["gather"][w_i] = fs_list
         self._device_maps = {}
         self._ensure_device_maps("lin", "nl")
@@ -431,75 +431,15 @@ class FEM_Domain:
         return self._host_maps
 
     def _build_phase_maps(self, phase_key: str, device=None) -> dict:
-        """Reduction maps of one assembly phase: lattice strided adds
-        (into self._fast_maps) where a stream's slot columns are affine in
-        the lattice index, gather maps on ``device`` (the domain's by
-        default; returned) for the rest, and under "rest_cols" the
-        remaining columns of each split stream as indices there."""
-        device = device or self.device
-        seg_bases = np.asarray(
-            [s[4] for s in self.pattern.offset_layout.segments])
-        seg_ncp = np.asarray(
-            [s[2] for s in self.pattern.offset_layout.segments])
-        order = np.argsort(seg_bases)
-        seg_bases, seg_ncp = seg_bases[order], seg_ncp[order]
-
-        def k_block_of(slot):
-            j = np.searchsorted(seg_bases, slot, side="right") - 1
-            if j < 0 or slot >= seg_bases[j] + seg_ncp[j]:
-                return None
-            return int(seg_bases[j])
-
+        """Reduction maps of one assembly phase (``build_phase_maps``):
+        lattice strided adds (into self._fast_maps) where a stream's slot
+        columns are affine in the lattice index, gather maps on
+        ``device`` (the domain's by default; returned) for the rest."""
         streams = collect_phase_streams(
             self._compiled_wps, self.pattern, phase_key)
-        fast = {"r": {}, "k": {}}
-        rest = {"r": [], "k": []}
-        rest_cols_dev = {}
-        counters = {"r": 0, "k": 0}
-        for s in streams:
-            kind = s["kind"]
-            si = counters[kind]
-            counters[kind] += 1
-            fs_list, rest_cols = None, None
-            mesh = self.workpieces[s["wp"]].mesh
-            if s["volume"] and mesh.lattice_shape is not None:
-                if kind == "k":
-                    block_of = k_block_of
-                else:
-                    info = self.pattern.wp_infos[s["wp"]]
-
-                    def block_of(slot, info=info):
-                        rel = slot - info.dof_offset
-                        if rel < 0 or rel >= info.n_vars * info.n_cp:
-                            return None
-                        return (info.dof_offset
-                                + (rel // info.n_cp) * info.n_cp)
-                slots2 = s["slots"].reshape(s["slots"].shape[0], -1)
-                fs_list, rest_cols = fit_stream_columns(
-                    slots2, mesh.lattice_shape, block_of)
-            if fs_list:
-                # per-column split: fitting columns reduce by strided
-                # adds, the rest (e.g. COO-spilled offsets) via gather
-                fast[kind][si] = (fs_list, rest_cols)
-                if rest_cols.size:
-                    rest[kind].append(slots2[:, rest_cols].reshape(-1))
-                    rest_cols_dev[kind, si] = torch.as_tensor(
-                        rest_cols.astype(np.int64), device=device)
-            else:
-                rest[kind].append(s["slots"].reshape(-1))
+        fast, entry = build_phase_maps(streams, self._compiled_wps,
+                                       self.pattern, device or self.device)
         self._fast_maps[phase_key] = fast
-
-        entry = {"rest_cols": rest_cols_dev}
-        for kind, num in (("r", self.pattern.basicfield_size),
-                          ("k", self.pattern.n_storage)):
-            if not rest[kind]:
-                continue
-            gr, touched = build_compact_gather_reduce(
-                np.concatenate(rest[kind]), num)
-            entry[kind] = maps_to_device(gr, device)
-            if touched is not None:
-                entry[kind + "_touched"] = torch.as_tensor(
-                    touched.astype(np.int64), device=device)
         return entry
 
     def _ghost_diag_vector(self) -> Optional[torch.Tensor]:
@@ -732,6 +672,7 @@ class FEM_Domain:
                 "K_linear_td": self._k_linear_td,
                 "refined": self._refined,
                 "maps": self._device_maps,
+                "layout": self.pattern.offset_layout,
                 "x_star": self.x,
                 "K_linear": torch.zeros(self.pattern.n_storage,
                                         dtype=self.dtype, device=self.device),

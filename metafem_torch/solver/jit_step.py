@@ -29,21 +29,65 @@ from ..linsolve import krylov
 from ..linsolve import twofloat as tf
 from ..linsolve.block_offset import OffsetMatrix
 from ..linsolve.precond import pr_jacobi
+from ..parallel.rowshard import (RowShardedMGOperator, RowShardedOp,
+                                 constrain, held, local_mg_state,
+                                 row_window)
 from .time_domain import initialize_dx, x_star_of
 
 
-def combine_klin(state, K_params) -> torch.Tensor:
+def combine_klin(state, K_params, rows=None) -> torch.Tensor:
     """sum_td K_params[td] * K_linear_td[td] (+ ghost diagonal): the
     linear tangent from the components frozen by
     ``freeze_linear_tangent``, one scalar-times-vector add per time
-    level."""
+    level.  ``rows``: a row-sharded step's window (the window's
+    storage); a window-cut stack (``parallel.shard_domain_state``) in a
+    whole step is refused."""
     K_td = state["K_linear_td"]
+    if rows is not None:
+        K_td = held(rows, state, K_td, storage=True)
+    elif state.get("cut_to") is not None:
+        raise ValueError("the state's K_linear_td is a row window: step "
+                         "it with rowshard_mesh")
     K = float(K_params[0]) * K_td[0]
     for td in range(1, K_td.shape[0]):
         K = K + float(K_params[td]) * K_td[td]
     if state.get("ghost_diag") is not None:
-        K = K + state["ghost_diag"]
+        K = K + constrain(rows, state["ghost_diag"], storage=True)
     return K
+
+
+def _row_window(domain, rowshard_mesh):
+    """The rank's row window of the domain's layout over a DeviceMesh, or
+    None without one."""
+    if rowshard_mesh is None:
+        return None
+    from torch.distributed.device_mesh import DeviceMesh
+    if not isinstance(rowshard_mesh, DeviceMesh):
+        raise TypeError(f"rowshard_mesh must be a torch.distributed "
+                        f"DeviceMesh, not {type(rowshard_mesh).__name__}")
+    return row_window(domain.pattern.offset_layout, rowshard_mesh)
+
+
+def _sharded_ops(rows):
+    """(A_of(vals), norm, gather, mg_state_of) of a row-sharded step, or
+    of a whole one (``rows`` None)."""
+    if rows is None:
+        return (None, torch.linalg.norm, lambda v: v, lambda mg: mg)
+
+    def A_of(vals):
+        return RowShardedOp(OffsetMatrix.from_values(
+            vals, rows.layout, rows.mine), rows)
+    return (A_of, rows.norm, rows.gather,
+            lambda mg: local_mg_state(mg, rows))
+
+
+def _whole_mg(mg):
+    """A frozen multigrid state for a whole step (one that
+    ``shard_domain_state`` cut to a window is refused)."""
+    if mg is not None and mg[0].get("rows") is not None:
+        raise ValueError("the state's multigrid fine level is a row "
+                         "window: step it with rowshard_mesh")
+    return mg
 
 
 def make_jitted_step(domain, sv_func: Callable = krylov.bicgstab,
@@ -72,11 +116,21 @@ def make_jitted_step(domain, sv_func: Callable = krylov.bicgstab,
     ``static_k_linear``: combine the components frozen by
     ``domain.freeze_linear_tangent()`` instead of assembling the linear
     tangent.  ``log``, when given, receives one (Krylov iterations, true
-    residual of the pass's system) pair per solver pass."""
-    if rowshard_mesh is not None:
-        raise NotImplementedError(
-            "rowshard_mesh (multi-device row sharding) is not ported yet "
-            "(ROADMAP.md section 1, item 6)")
+    residual of the pass's system) pair per solver pass.
+
+    ``rowshard_mesh``: a DeviceMesh, the scale-out layout
+    (parallel/rowshard.py): pass a state from
+    ``parallel.shard_domain_state``; the assembly lands reduce-scattered
+    on this rank's row window, the Krylov vectors hold the window's
+    rows, every product gathers x and every dot all-reduces over the
+    mesh, and x and dx come back whole on every rank.  Multigrid needs
+    ``reuse_mg`` there (the frozen state's fine level runs on the
+    window)."""
+    rows = _row_window(domain, rowshard_mesh)
+    if rows is not None and precond == "mg" and not reuse_mg:
+        raise ValueError("rowshard_mesh with precond='mg' needs "
+                         "reuse_mg=True and domain.setup_mg()")
+    A_sh, norm, gather, mg_of = _sharded_ops(rows)
     mg_hier = None
     if precond == "mg":
         from ..linsolve import multigrid
@@ -101,10 +155,12 @@ def make_jitted_step(domain, sv_func: Callable = krylov.bicgstab,
     sqrt_n = math.sqrt(pattern.basicfield_size)
 
     def A_of(vals) -> OffsetMatrix:
+        if A_sh is not None:
+            return A_sh(vals)
         return OffsetMatrix.from_values(vals, layout)
 
     def norm_n(v) -> float:
-        return float(torch.linalg.norm(v)) / sqrt_n
+        return float(norm(v)) / sqrt_n
 
     def passes(A, residue, solve_once):
         """max_pass restart passes of solve_once(rr) -> (delta_i, iters)
@@ -135,7 +191,9 @@ def make_jitted_step(domain, sv_func: Callable = krylov.bicgstab,
         st["t"], st["dt"] = float(t), float(dt)
         st["K_params"] = device_constant(K_params, dtype, dev)
         st["x_star"] = x
-        st["K_linear"] = (combine_klin(st, K_params) if static_k_linear
+        if rows is not None:
+            st["row_window"] = rows
+        st["K_linear"] = (combine_klin(st, K_params, rows) if static_k_linear
                           else k_linear(st))
 
         def res_of(dx):
@@ -150,14 +208,20 @@ def make_jitted_step(domain, sv_func: Callable = krylov.bicgstab,
         if mg_hier is not None:
             # set up once per step from the predictor tangent and frozen
             # across the Newton iterations
-            mg_state = (st["mg_frozen"] if reuse_mg else multigrid.mg_setup(
-                mg_hier, A_of(K_total), st.get("mg_mask")))
+            mg_state = (mg_of(st["mg_frozen"]) if reuse_mg
+                        else multigrid.mg_setup(mg_hier, A_of(K_total),
+                                                st.get("mg_mask")))
+            if rows is None:
+                mg_state = _whole_mg(mg_state)
         res_prev = float(np.finfo(np.float32).max)
         it = 0
         while res > tol and it < max_newton and res < stall_ratio * res_prev:
             A = A_of(K_total)
             if mg_hier is not None:
-                op = multigrid.MGOperator(A, mg_state, mg_hier)
+                op = multigrid.MGOperator(getattr(A, "inner", A), mg_state,
+                                          mg_hier)
+                if rows is not None:
+                    op = RowShardedMGOperator(op, rows)
 
                 def solve_once(rr):
                     y_i, iters, _ = sv_func(op, rr, tol=inner_tol(rr),
@@ -172,6 +236,7 @@ def make_jitted_step(domain, sv_func: Callable = krylov.bicgstab,
                                             maxiter=maxiter, **sv_kwargs)
                     return d_i, iters
                 delta = unscale(passes(As, residue, solve_once))
+            delta = gather(delta)               # whole on every rank
             dx = dx + beta_t[:, None] * (-delta)[None, :]     # update_dx!
             # the residual and tangent at the new dx serve the stop test
             # and the next iteration (the reference assembles them twice)
@@ -236,10 +301,8 @@ def make_refined_step(domain, sv_func: Callable = krylov.bicgstab,
         raise ValueError(f"unknown residual_mode {residual_mode!r}")
     if residual_mode == "df32" and domain.dtype != torch.float32:
         raise ValueError("residual_mode='df32' expects a float32 domain")
-    if rowshard_mesh is not None:
-        raise NotImplementedError(
-            "rowshard_mesh (multi-device row sharding) is not ported yet "
-            "(ROADMAP.md section 1, item 6)")
+    rows = _row_window(domain, rowshard_mesh)
+    A_sh, norm, gather, mg_of = _sharded_ops(rows)
     mg_hier = None
     aux_static = None
     if precond == "mg":
@@ -281,6 +344,8 @@ def make_refined_step(domain, sv_func: Callable = krylov.bicgstab,
     s_np = np.float32 if sdtype == torch.float32 else np.float64
 
     def A_of(vals) -> OffsetMatrix:
+        if A_sh is not None:
+            return A_sh(vals)
         return OffsetMatrix.from_values(vals, layout)
 
     if sv_func is krylov.chebyshev:
@@ -304,18 +369,23 @@ def make_refined_step(domain, sv_func: Callable = krylov.bicgstab,
 
     def solve_f32(state, A, rr, tol_i):
         if mg_hier is not None or aux_static is not None:
+            Aw = getattr(A, "inner", A)         # a row-sharded A's window
             if mg_hier is not None:
-                op = multigrid.MGOperator(A, state["mg_frozen"], mg_hier)
+                mg = mg_of(state["mg_frozen"])
+                op = multigrid.MGOperator(Aw, mg if rows is not None
+                                          else _whole_mg(mg), mg_hier)
             else:
                 desc, hier = aux_static
                 op = auxmg.AuxMGOperator(
-                    A, auxmg.refresh_tangent(A, state["auxmg_tree"], desc),
-                    hier, desc)
+                    Aw, auxmg.refresh_tangent(Aw, state["auxmg_tree"], desc),
+                    hier, desc, rows=rows)
                 if inner_operator == "sparse":
                     # tail-free inner iteration on the sparsified tangent;
                     # the outer loop's true residual absorbs the
                     # sparsification error as extra refines
                     op = auxmg.SparseInnerOp(op)
+            if rows is not None:
+                op = RowShardedMGOperator(op, rows)
             r0, delta = rr, None
             for p in range(max_pass):
                 y_i, _, _ = sv_func(op, rr, tol=tol_i, maxiter=maxiter,
@@ -340,7 +410,7 @@ def make_refined_step(domain, sv_func: Callable = krylov.bicgstab,
 
     if residual_mode == "df32":
         step = _df32_step(domain, A_of, solve_f32, inner_tol, max_refine,
-                          stall_ratio, static_nl_tangent)
+                          stall_ratio, static_nl_tangent, rows)
         step.inner_solver = sv_func.__name__
         step.inner_maxiter = maxiter
         return step
@@ -362,10 +432,15 @@ def make_refined_step(domain, sv_func: Callable = krylov.bicgstab,
         ref = state["refined"]
         if "A_mats" not in ref:
             # the frozen A_td as matrices kept in the freeze's record, so
-            # that each packs its values (dense groups and tail) once
-            ref["A_mats"] = [A_of(a) for a in ref["A"]]
-        A64, b64 = ref["A_mats"], ref["b"]
-        K_lin = combine_klin(state, K_params64.astype(s_np))
+            # that each packs its values (dense groups and tail) once (a
+            # row-sharded step: the window's rows, products of a whole x)
+            ref["A_mats"] = [A_of(held(rows, ref, a, storage=True))
+                             for a in ref["A"]]
+            if rows is not None:
+                ref["A_mats"] = [a.inner for a in ref["A_mats"]]
+        A64 = ref["A_mats"]
+        b64 = held(rows, ref, ref["b"])
+        K_lin = combine_klin(state, K_params64.astype(s_np), rows)
 
         def residual_and_knl(dx, with_grad=True):
             xs = x_star_of(x, dx, alpha)                        # f64
@@ -375,22 +450,25 @@ def make_refined_step(domain, sv_func: Callable = krylov.bicgstab,
             st64 = {**state, "wp": ref["wp"], "x_star": xs,
                     "K_params": K_params64_t, "t": float(t), "dt": dt64}
             r_nl, K_nl = run_phase(st64, "nonaff_nl")
-            return r + r_nl, (K_nl if with_grad else None)
+            return (r + constrain(rows, r_nl),
+                    constrain(rows, K_nl, storage=True) if with_grad
+                    else None)
 
         dx = initialize_dx(x, dt64, gamma)
         r64, K_nl = residual_and_knl(dx)
-        res = float(torch.linalg.norm(r64)) / sqrt_n
+        res = float(norm(r64)) / sqrt_n
         res_prev = float(np.finfo(np.float32).max)
         it = 0
         while res > tol and it < max_refine and res < stall_ratio * res_prev:
             A = A_of(K_lin + K_nl.to(sdtype))
             delta = solve_f32(state, A, r64.to(sdtype), inner_tol(res))
+            delta = gather(delta)               # whole on every rank
             dx = dx + beta_t[:, None] * (-delta.to(f64))[None, :]
             r64, K_nlb = residual_and_knl(dx,
                                           with_grad=not static_nl_tangent)
             if K_nlb is not None:
                 K_nl = K_nlb
-            res_prev, res = res, float(torch.linalg.norm(r64)) / sqrt_n
+            res_prev, res = res, float(norm(r64)) / sqrt_n
             it += 1
         return x + dx, dx, res, it
 
@@ -399,22 +477,28 @@ def make_refined_step(domain, sv_func: Callable = krylov.bicgstab,
     return step
 
 
-def _df_operator(ref: dict, layout) -> tuple:
+def _df_operator(ref: dict, layout, rows=None) -> tuple:
     """The frozen operator of the two-float mode: A_td and b as DF pairs
     (split from the float64 freeze on its device at the first call, or
     the pairs loaded from the reference) and each A_td's packed pair
-    (``twofloat.df_pack``), kept in the freeze's record."""
+    (``twofloat.df_pack``), kept in the freeze's record.  ``rows``: a
+    row-sharded step's window (the pairs of its rows and storage, packed
+    over its plans)."""
+    def con(v, storage=False):
+        return held(rows, ref, v, storage)
     if "A_hi" not in ref:
         A, b = tf.df_from_f64(ref["A"]), tf.df_from_f64(ref["b"])
         ref.update(A_hi=A.hi, A_lo=A.lo, b_hi=b.hi, b_lo=b.lo)
-    A = [tf.DF(hi, lo) for hi, lo in zip(ref["A_hi"], ref["A_lo"])]
+    A = [tf.DF(con(hi, True), con(lo, True))
+         for hi, lo in zip(ref["A_hi"], ref["A_lo"])]
     if "A_packed" not in ref:
-        ref["A_packed"] = [tf.df_pack(a, layout) for a in A]
-    return A, tf.DF(ref["b_hi"], ref["b_lo"]), ref["A_packed"]
+        ref["A_packed"] = [tf.df_pack(a, layout, window=None if rows is None
+                                      else rows.mine) for a in A]
+    return A, tf.DF(con(ref["b_hi"]), con(ref["b_lo"])), ref["A_packed"]
 
 
 def _df32_step(domain, A_of, solve_f32, inner_tol, max_refine, stall_ratio,
-               static_nl_tangent):
+               static_nl_tangent, rows=None):
     """The refined step's ``df32`` branch (the reference's
     ``jit_step.py:532-674``) as a host loop: x, dx and the residual as DF
     pairs, the tangent and the solves in float32 (``A_of``,
@@ -431,6 +515,20 @@ def _df32_step(domain, A_of, solve_f32, inner_tol, max_refine, stall_ratio,
     bfs = pattern.basicfield_size
     f32, f64 = torch.float32, torch.float64
     nonaff_maps = domain._device_maps["nonaff_res"]
+    _, norm, gather, _ = _sharded_ops(rows)
+    window = None if rows is None else rows.mine
+    touched_at = None
+    if rows is not None and "r_touched" in nonaff_maps:
+        # the touched rows the window holds: (their place among the
+        # touched rows, their place in the window)
+        touched = nonaff_maps["r_touched"]
+        lpos = torch.full((bfs,), -1, dtype=torch.int64,
+                          device=touched.device)
+        lpos[window.tables(touched.device)["rows"]] = torch.arange(
+            rows.n_local, device=touched.device)
+        lt = lpos[touched]
+        sel = lt >= 0
+        touched_at = (sel, lt[sel])
 
     def step(state, x, t, dt):
         as_pair = isinstance(x, tf.DF)
@@ -450,8 +548,8 @@ def _df32_step(domain, A_of, solve_f32, inner_tol, max_refine, stall_ratio,
         alpha32 = device_constant(np.float32(alpha[:levels]), f32, dev)
 
         ref = state["refined"]
-        A_df, b_df, packed = _df_operator(ref, layout)
-        K_lin = combine_klin(state, K_params64.astype(np.float32))
+        A_df, b_df, packed = _df_operator(ref, layout, rows)
+        K_lin = combine_klin(state, K_params64.astype(np.float32), rows)
         dtp = tf.df_const(dt64, dev)
 
         def df_initialize_dx(xp: tf.DF) -> tf.DF:
@@ -474,14 +572,16 @@ def _df32_step(domain, A_of, solve_f32, inner_tol, max_refine, stall_ratio,
             for td in range(levels):
                 r = tf.df_add(r, tf.df_offset_mv(
                     A_df[td], layout, tf.DF(xs.hi[td], xs.lo[td]),
-                    packed=packed[td]))
+                    packed=packed[td], window=window))
             if ref["wp_df"] is not None:
                 # nonaffine volume: every nonaffine residue in two-float
                 # arithmetic over the frozen DF tables
                 st_df = {**state, "wp": ref["wp_df"], "x_star": xs,
                          "K_params": K_params64_t, "t": float(t),
                          "dt": dt64}
-                r = tf.df_add(r, run_phase(st_df, "nonaff_res_df")[0])
+                r_nl = run_phase(st_df, "nonaff_res_df")[0]
+                r = tf.df_add(r, tf.DF(constrain(rows, r_nl.hi),
+                                       constrain(rows, r_nl.lo)))
             elif "r_touched" in nonaff_maps:
                 # boundary-only nonaffinity: float64 x* at the boundary
                 # rows only, the remainder over the touched rows, added
@@ -495,6 +595,10 @@ def _df32_step(domain, A_of, solve_f32, inner_tol, max_refine, stall_ratio,
                         "t": float(t), "dt": dt64}
                 r_nl_c = run_phase(st64, "nonaff_res")[0]
                 touched = nonaff_maps["r_touched"]
+                if touched_at is not None:
+                    # the window's touched rows, at their window places
+                    r_nl_c = r_nl_c[touched_at[0]]
+                    touched = touched_at[1]
                 t_df = tf.df_from_f64(r.hi[touched].to(f64)
                                       + r.lo[touched].to(f64) + r_nl_c)
                 r.hi[touched] = t_df.hi     # r is this call's own pair
@@ -506,16 +610,20 @@ def _df32_step(domain, A_of, solve_f32, inner_tol, max_refine, stall_ratio,
                         "K_params": K_params64_t, "t": float(t),
                         "dt": dt64}
                 r = tf.df_add(r, tf.df_from_f64(
-                    run_phase(st64, "nonaff_res")[0]))
+                    constrain(rows, run_phase(st64, "nonaff_res")[0])))
             if not with_grad:
                 return r, None
             # the nonaffine tangent blocks in float32 at x's high word:
-            # the tangent sets the convergence rate, not the answer
+            # the tangent sets the convergence rate, not the answer (a
+            # sharded state's element block lands on the window's
+            # storage by the assembly's reduce-scatter)
             st32 = {**state, "x_star": xs.hi, "K_params": K_params32_t}
+            if rows is not None:
+                st32["row_window"] = rows
             return r, run_phase(st32, "nl_grad")[1]
 
         def norm_n(r: tf.DF) -> float:
-            return float(torch.linalg.norm(r.hi)) / sqrt_n
+            return float(norm(r.hi)) / sqrt_n
 
         dx = df_initialize_dx(xdf)
         r, K_nl = residual_and_knl(dx)
@@ -524,7 +632,7 @@ def _df32_step(domain, A_of, solve_f32, inner_tol, max_refine, stall_ratio,
         it = 0
         while res > tol and it < max_refine and res < stall_ratio * res_prev:
             A = A_of(K_lin + K_nl)
-            delta = solve_f32(state, A, r.hi, inner_tol(res))
+            delta = gather(solve_f32(state, A, r.hi, inner_tol(res)))
             dx = tf.df_add_f32(dx, -beta32[:, None] * delta[None, :])
             r, K2 = residual_and_knl(dx, with_grad=not static_nl_tangent)
             if K2 is not None:

@@ -263,16 +263,38 @@ def test_float32_domain_step_matches_reference():
 
 
 def test_unported_options_raise():
-    """rowshard_mesh is not ported (it names its ROADMAP item); the
-    auxiliary-space options are ported and refuse a domain without
-    setup_auxmg (a lattice one here)."""
+    """rowshard_mesh takes a DeviceMesh and refuses anything else; on a
+    one-rank gloo group (a HashStore, no ranks spawned) the row-sharded
+    refined multigrid step is bitwise the unsharded one, since every
+    collective is an identity.  The auxiliary-space options refuse a
+    domain without setup_auxmg (a lattice one here)."""
+    import torch.distributed as dist
+    from metafem_torch.parallel import shard_domain_state
+    from metafem_torch.parallel.dataparallel import make_mesh
     _, dom = _frozen_pair(False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         dom.make_refined_step(precond="jacobi", rowshard_mesh=object())
     with pytest.raises(RuntimeError, match="setup_auxmg"):
         dom.make_refined_step(precond="auxmg")
     with pytest.raises(ValueError, match="smooth='sparse'"):
         dom.make_refined_step(precond="jacobi", inner_operator="sparse")
+    dom.setup_mg(tune=False)
+    dom.converge_tol = 1e-10
+    kw = dict(sv_func=krylov.bicgstab, maxiter=60, max_refine=10,
+              precond="mg")
+    state = dom._runtime_state()
+    x0, _, res0, it0 = dom.make_refined_step(**kw)(state, dom.x, 0.0, 1.0)
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh()
+        step = dom.make_refined_step(rowshard_mesh=mesh, **kw)
+        x1, _, res1, it1 = step(shard_domain_state(state, mesh), dom.x,
+                                0.0, 1.0)
+    finally:
+        dist.destroy_process_group()
+    assert res0 < 1e-10 and it1 == it0 and res1 == res0
+    assert torch.equal(x1, x0)
 
 
 # ---------------------------------------------------------------------------
