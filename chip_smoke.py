@@ -3467,7 +3467,10 @@ def phase_multidevice(device, flag_md, nel=FLAGSHIP_NEL,
                       pikachu_nel=MD_PIKACHU_NEL, backend_a="nccl") -> dict:
     """The multi-device layer on the card: leg A (NCCL, one rank, in
     process, bitwise) and leg B (two gloo ranks on this card through
-    ``metafem_torch.parallel.dryrun``).  NCCL across several GPUs is not
+    ``metafem_torch.parallel.dryrun``: the flagship's refined steps, the
+    pikachu brick's auxmg step, the float64 flagship's jitted step with
+    per-step multigrid setup and a whole step on its cut state, and the
+    solver menu on its tangent).  NCCL across several GPUs is not
     run here: the machine has one card.  ``backend_a`` and a CPU
     ``device`` serve a rehearsal on the CPU."""
     t0 = time.perf_counter()
@@ -3480,7 +3483,8 @@ def phase_multidevice(device, flag_md, nel=FLAGSHIP_NEL,
         cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
                "--nproc-per-node", str(MD_RANKS), "-m",
                "metafem_torch.parallel.dryrun", "--device", device.type,
-               "--backend", "gloo", "--legs", "flagship,pikachu",
+               "--backend", "gloo", "--legs",
+               "flagship,pikachu,flagship_jitted,flagship_menu",
                "--nel", *map(str, nel),
                "--pikachu-nel", *map(str, pikachu_nel), "--out", tmp]
         p = _run_group(cmd, MD_TIMEOUT_S)
@@ -3496,9 +3500,16 @@ def phase_multidevice(device, flag_md, nel=FLAGSHIP_NEL,
                        if device.type == "cuda" else "")
     fl = [r for r in summary["legs"]["flagship"]["ranks"]]
     pk = [r for r in summary["legs"]["pikachu"]["ranks"]]
+    fj = [r for r in summary["legs"]["flagship_jitted"]["ranks"]]
+    fm = [r for r in summary["legs"]["flagship_menu"]["ranks"]]
     out["B"] = {"ranks": summary["ranks"], "backend": summary["backend"],
                 "s": time.perf_counter() - t_b, "flagship": fl,
-                "pikachu": pk,
+                "pikachu": pk, "flagship_jitted": fj, "flagship_menu": fm,
+                "leg_s": {k: v["leg_s"] for k, v in summary["legs"].items()},
+                "jitted_f64": _md_kernel(fj, "flagship_jitted", "step",
+                                         "f64_tangent", "packed", peak),
+                "menu_f64": _md_kernel(fm, "flagship_menu", "menu",
+                                       "f64_scaled", "packed", peak),
                 "packed_f32": _md_kernel(fl, "flagship", "f64", "f32_fine",
                                          "packed", peak),
                 "packed_f64": _md_kernel(fl, "flagship", "f64", "f64_A_td",
@@ -3525,8 +3536,47 @@ def phase_multidevice(device, flag_md, nel=FLAGSHIP_NEL,
                       f"{_gib(m['peak_bytes'])} GiB (whole "
                       f"{_gib(m['peak_bytes_whole'])}); launches "
                       f"{m['launches']}; collectives {m['comm']}")
+    for r in fj:
+        m, c, su = r["step"], r["whole_on_cut"], r["setup"]
+        print(f"[multidevice] B flagship_jitted f64 rank {m['rank']}: "
+              f"{r['dof']} DOF, window {m['window']} ({m['rows']} rows, "
+              f"{m['storage']} stored values); Newton {m['refines']} "
+              f"{m['refines_all_ranks']} (whole {m['refines_whole']}), "
+              f"Krylov {m['krylov']} {m['krylov_all_ranks']} (whole "
+              f"{m['krylov_whole']}), residual {m['res']:.3e}, x within "
+              f"{m['max_rel_vs_whole']:.3e} of the whole step's; ms "
+              f"{m['ms']:.1f} (whole {m['ms_whole']:.1f}); per-step setup "
+              f"{su['s']:.3f} s on the window, {su['s_whole']:.3f} s "
+              f"whole, {su['n_levels']} levels, level-0 omega "
+              f"{su['omega0_rel_diff']:.3e} apart, levels >= 1 "
+              f"{su['coarse_max_abs_diff']:.3e} apart; peak "
+              f"{_gib(m['peak_bytes'])} GiB (whole "
+              f"{_gib(m['peak_bytes_whole'])}); launches {m['launches']}; "
+              f"collectives {m['comm']}")
+        print(f"[multidevice] B flagship_jitted whole step on the cut state "
+              f"rank {m['rank']}: bitwise the uncut twin's, "
+              f"{c['iters']} Newton, residual {c['res']:.3e}; its first "
+              f"step (gathering {c['gathered']} back) {c['s'] * 1e3:.1f} "
+              f"ms, peak {_gib(c['peak_bytes'])} GiB, launches "
+              f"{c['launches']}, collectives {c['comm']}; setup_mg "
+              f"{c['setup_mg_s']:.2f} s")
+    for r in fm:
+        m = r["menu"]
+        for name, v in m["solvers"].items():
+            print(f"[multidevice] B flagship_menu {name} rank {m['rank']}: "
+                  f"{v['iters']} iterations {v['iters_all_ranks']}, "
+                  f"residual {v['res']:.3e} (whole {v['res_whole']:.3e}), "
+                  f"y bitwise the whole solve's with the ranks' order "
+                  f"of additions, {v['max_rel_vs_plain']:.3e} of max|y| "
+                  f"from the whole solve with torch.dot's order; "
+                  f"ms {v['ms']:.1f} (whole {v['ms_whole']:.1f}); "
+                  f"launches {v['launches']}; collectives {v['comm']}")
+        print(f"[multidevice] B flagship_menu rank {m['rank']}: peak "
+              f"{_gib(m['peak_bytes'])} GiB")
     print(f"[multidevice] phase {time.perf_counter() - t0:.1f} s (leg B "
-          f"{out['B']['s']:.1f} s)")
+          f"{out['B']['s']:.1f} s; legs "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in out["B"]["leg_s"].items())
+          + ")")
     return out
 
 
@@ -3636,7 +3686,12 @@ def main() -> None:
         "multidevice": {"leg_a": mdp["A"],
                         "f32_fine": mdp["B"]["packed_f32"],
                         "f64_A_td": mdp["B"]["packed_f64"],
-                        "pikachu_f64_A_td": mdp["B"]["pikachu_packed_f64"]},
+                        "pikachu_f64_A_td": mdp["B"]["pikachu_packed_f64"],
+                        # the float64 flagship's jitted step with per-step
+                        # multigrid setup (its tangent's window), and the
+                        # solver menu (the Jacobi-scaled tangent's window)
+                        "flagship_jitted_f64": mdp["B"]["jitted_f64"],
+                        "flagship_menu_f64": mdp["B"]["menu_f64"]},
         "max_rel_err_f64": max(kern["max_rel_err_f64"], flag["spmv64"]["rel"],
                                p3d["spmv64"]["rel"],
                                mfp["te"]["spmv64"]["rel"],

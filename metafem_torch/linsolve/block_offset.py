@@ -640,8 +640,9 @@ class OffsetMatrix:
     ``window`` (a ``WindowLayout``; by default ``whole_window``, the
     whole matrix) says which rows: ``vals`` is the window's storage,
     ``mv`` takes the whole x and returns the window's rows of A x,
-    ``diag`` the window's rows of the diagonal, ``scale_rows`` and
-    ``scale_cols`` take the whole s.  ``mv`` runs on the packed
+    ``tmv`` takes the window's rows of x and returns their whole-length
+    share of A.T x, ``diag`` the window's rows of the diagonal,
+    ``scale_rows`` and ``scale_cols`` take the whole s.  ``mv`` runs on the packed
     structural values of each dense group (``offset_spmv.PackPlan``)
     and of a BSR tail (``bsr_tail.TailPlan``) over the window's plans,
     gathered from ``vals`` at the matrix's first product and kept in
@@ -700,11 +701,14 @@ class OffsetMatrix:
 
     def _tail_col_plan(self):
         """The tail's segment-sum plan over its columns (block columns
-        under a BSR tail), built once per layout and device."""
-        t = self._tables()
+        under a BSR tail), built once per layout (or window, over the
+        window's tail entries) and device."""
+        w = self.window
+        t = self._tables() if w.whole else self._wtables()
         if "tail_col_plan" not in t:
-            t["tail_col_plan"] = sorted_segment_plan(self.layout.coo_cols,
-                                                     self.vals.device)
+            cols = np.asarray(self.layout.coo_cols)
+            t["tail_col_plan"] = sorted_segment_plan(
+                cols if w.whole else cols[w.tail_sel], self.vals.device)
         return t["tail_col_plan"]
 
     def pack_plans(self, vec: int = None) -> list:
@@ -780,39 +784,53 @@ class OffsetMatrix:
         vals[g, k, r] * x[pd_g, r] land at y[pb_g, r + d_k] (shifted
         slice adds in unit order, no atomics); the COO tail is a sorted
         segment sum over the stable column order, a BSR tail's block
-        products a sorted segment sum over the block columns."""
-        self._whole("tmv")
-        lo = self.layout
+        products a sorted segment sum over the block columns.  Over a
+        window, x holds the window's rows and y is the window rows'
+        share of A.T x, whole-length, summed over every window's share to
+        A.T x (``parallel.rowshard.RowShardedOp.tmv``): the window's
+        slabs [G, n_off, c1 - c0] add the rows r in [c0, c1) that reach
+        a column r + d_k, and the tail's entries (a BSR tail's blocks) of
+        the window's rows add theirs against x scattered to a whole
+        vector zero outside the window, so that a block shared with
+        another window adds only its own rows."""
+        lo, w = self.layout, self.window
         y = torch.zeros(lo.n, dtype=x.dtype, device=x.device)
-        for grp in lo.pallas_groups:
-            C, n_cp, n_off = grp.n_vars, grp.n_cp, grp.n_off
-            G = len(grp.units)
-            sl = slice(grp.dof_offset, grp.dof_offset + C * n_cp)
-            xw = x[sl].view(C, n_cp)
-            yw = y[sl].view(C, n_cp)
-            slab = self.vals[grp.base:grp.base + G * n_off * n_cp].view(
-                G, n_off, n_cp)
+        at = 0
+        for i, (grp, (c0, c1)) in enumerate(zip(lo.pallas_groups, w.cps)):
+            C, n_cp, n_off, nw = grp.n_vars, grp.n_cp, grp.n_off, c1 - c0
+            if w.whole:
+                at = grp.dof_offset
+            xw = x[at:at + C * nw].view(C, nw)
+            at += C * nw
+            yw = y[grp.dof_offset:grp.dof_offset + C * n_cp].view(C, n_cp)
+            slab = self.vals[w.group_range(i)].view(len(grp.units), n_off,
+                                                    nw)
             for g, (pd, pb) in enumerate(grp.units):
-                prod = slab[g] * xw[pd]                 # [n_off, n_cp]
+                prod = slab[g] * xw[pd]                 # [n_off, nw]
                 for k, d in enumerate(grp.offsets):
-                    if d >= 0:
-                        yw[pb, d:] += prod[k, :n_cp - d]
-                    else:
-                        yw[pb, :n_cp + d] += prod[k, -d:]
-        if lo.blk_b:
-            b = lo.blk_b
-            B = self.tail_blocks()
-            xg = self._blocked(x)[self.coo_rows]               # [nb, b]
-            contrib = B[0] * xg[:, 0]                          # [b, nb]
-            for i in range(1, b):
-                contrib = contrib + B[i] * xg[:, i]
-            yb = sorted_segment_sum(contrib.t(), self._tail_col_plan(),
-                                    lo.n_block_rows)
-            y = y + yb.reshape(-1)[:lo.n]
-        elif lo.n_coo:
-            y = y + sorted_segment_sum(
-                self.vals[lo.n_dense:] * x[self.coo_rows],
-                self._tail_col_plan(), lo.n)
+                    r0, r1 = max(c0, -d), min(c1, n_cp - d)
+                    if r0 < r1:
+                        yw[pb, r0 + d:r1 + d] += prod[k, r0 - c0:r1 - c0]
+        if lo.n_coo:
+            wt = self._wtables()
+            xm = x
+            if not w.whole:
+                xm = torch.zeros(lo.n, dtype=x.dtype, device=x.device)
+                xm[wt["rows"]] = x
+            if lo.blk_b:
+                b = lo.blk_b
+                B = self.tail_blocks()
+                xg = self._blocked(xm)[wt["tail_rows"]]         # [nb_w, b]
+                contrib = B[0] * xg[:, 0]                       # [b, nb_w]
+                for i in range(1, b):
+                    contrib = contrib + B[i] * xg[:, i]
+                yb = sorted_segment_sum(contrib.t(), self._tail_col_plan(),
+                                        lo.n_block_rows)
+                y = y + yb.reshape(-1)[:lo.n]
+            else:
+                y = y + sorted_segment_sum(
+                    self.vals[w.n_dense:] * xm[wt["tail_rows"]],
+                    self._tail_col_plan(), lo.n)
         return y
 
     def diag(self, diag_pos=None) -> torch.Tensor:

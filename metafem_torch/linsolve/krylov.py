@@ -27,6 +27,12 @@ argument (``P``, ``s0``, ``jitter``), by default normal numbers from a
 CPU ``torch.Generator`` seeded 0, 1 and 2, so runs on the CPU and on the
 card start alike.
 
+Every solver also runs on a row-sharded operator (``parallel.rowshard``):
+its vectors hold the rank's rows, every dot and norm is all-reduced, a
+shadow array is drawn whole and cut to the rank's rows, the host's small
+systems are built from all-reduced values (so every rank takes the same
+branch), and LSQR's A.T u is ``RowShardedOp.tmv``.
+
 float32 dots are compensated (the reference's dot2, ``_dot``): at ~1e6
 DOF plain float32 dots cancel and the Krylov recurrences break down.
 """
@@ -67,21 +73,31 @@ def _rows(A):
     return getattr(A, "row_window", None)
 
 
-def _dot(a: torch.Tensor, b: torch.Tensor, rows=None) -> torch.Tensor:
-    """Inner product; float32 vectors accumulate as the reference's dot2
-    (error-free elementwise products p + err, both block-summed with a
-    float64 tail), returned as float32.  ``rows``: the operator's row
-    window (``_rows``): the local sum (float64 for float32 vectors) is
-    all-reduced before the cast, the same bits on every rank."""
+def _local_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The inner product of the vectors at hand: float64 for float32
+    vectors, accumulated as the reference's dot2 (error-free elementwise
+    products p + err, both block-summed with a float64 tail)."""
     if a.dtype == torch.float64:
-        d = torch.dot(a, b)
-        return d if rows is None else rows.all_reduce(d)
+        return torch.dot(a, b)
     if a.dtype != torch.float32:
         raise NotImplementedError(
             f"Krylov solves run in float32 or float64, not {a.dtype}")
     p, err = _two_prod(a, b)
-    d = _block_sum(p) + _block_sum(err)
-    return (d if rows is None else rows.all_reduce(d)).to(torch.float32)
+    return _block_sum(p) + _block_sum(err)
+
+
+def _reduce(fn, rows, *vs) -> torch.Tensor:
+    """fn of the vectors vs; over a row window (``_rows``) the sum over
+    ranks of fn of each rank's rows (``rows.reduce``), the same bits on
+    every rank."""
+    return fn(*vs) if rows is None else rows.reduce(fn, *vs)
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor, rows=None) -> torch.Tensor:
+    """Inner product (``_local_dot``, reduced over ``rows``); float32
+    vectors sum in float64 and return float32."""
+    d = _reduce(_local_dot, rows, a, b)
+    return d if a.dtype == torch.float64 else d.to(torch.float32)
 
 
 def _norm(v: torch.Tensor, rows=None) -> torch.Tensor:
@@ -95,17 +111,8 @@ def _nn(v: torch.Tensor, rows=None) -> torch.Tensor:
 
 def _mdot(M: torch.Tensor, v: torch.Tensor, rows=None) -> torch.Tensor:
     """M @ v for a short stack of vectors M (IDR(s)'s shadow space,
-    GMRES's basis): local products, all-reduced over ``rows``."""
-    d = M @ v
-    return d if rows is None else rows.all_reduce(d)
-
-
-def _whole_only(A, name: str) -> None:
-    if _rows(A) is not None:
-        raise NotImplementedError(
-            f"{name} takes whole operators only; the row-sharded solves "
-            f"run cg, bicgstab, bicgstabl(_gs), idrs, gmres, cgs and "
-            f"chebyshev")
+    GMRES's basis), reduced over ``rows``."""
+    return _reduce(torch.matmul, rows, M, v)
 
 
 def _pl(pl, v):
@@ -224,14 +231,20 @@ def _nonzero(v: torch.Tensor) -> torch.Tensor:
     return torch.where(v == 0, torch.ones_like(v), v)
 
 
-def _shadow(v, seed: int, shape, b: torch.Tensor) -> torch.Tensor:
+def _shadow(v, seed: int, shape, b: torch.Tensor,
+            rows=None) -> torch.Tensor:
     """The random array ``v`` on b's device and type, or normal numbers
-    from a CPU generator seeded ``seed`` when ``v`` is None."""
+    from a CPU generator seeded ``seed`` when ``v`` is None; ``shape``
+    whole.  With a row window (``_rows``) the rank's rows of it (the
+    last axis): every rank draws the whole array and keeps its rows, so
+    the sharded solve works in the whole solve's random space."""
     if v is None:
         gen = torch.Generator(device="cpu").manual_seed(seed)
-        return torch.randn(shape, generator=gen, dtype=b.dtype).to(b.device)
-    v = v if torch.is_tensor(v) else torch.tensor(np.asarray(v))
-    return v.to(dtype=b.dtype, device=b.device).reshape(shape)
+        v = torch.randn(shape, generator=gen, dtype=b.dtype).to(b.device)
+    else:
+        v = v if torch.is_tensor(v) else torch.tensor(np.asarray(v))
+        v = v.to(dtype=b.dtype, device=b.device).reshape(shape)
+    return v if rows is None else rows.local(v)
 
 
 def _host(v: torch.Tensor) -> np.ndarray:
@@ -411,9 +424,7 @@ def idrs(A, b, x0=None, tol=1e-8, maxiter=1000, pl=None, s: int = 4,
     rw = _rows(A)
     x, r = _prep(A, b, x0, pl)
     n = b.shape[0] if rw is None else rw.n
-    P = _shadow(P, 0, (s, n), b)
-    if rw is not None:
-        P = rw.local(P)             # the rank's rows of the shadow space
+    P = _shadow(P, 0, (s, n), b, rw)   # the rank's rows of the space
     n = b.shape[0]
     G = torch.zeros((s, n), dtype=b.dtype, device=b.device)
     U = torch.zeros_like(G)
@@ -460,37 +471,39 @@ def idrs_original(A, b, x0=None, tol=1e-8, maxiter=1000, pl=None,
     against the full shadow matrix, the counterpart of the reference's
     ``idrs_original!`` (04_IDRs.jl:97-166).  ``P`` as in ``idrs``; M
     and f on the host in float64."""
-    _whole_only(A, "idrs_original")
+    rw = _rows(A)
     x, r = _prep(A, b, x0, pl)
+    P = _shadow(P, 0, (s, b.shape[0] if rw is None else rw.n), b, rw)
     n = b.shape[0]
-    P = _shadow(P, 0, (s, n), b)
     U = torch.zeros((s, n), dtype=b.dtype, device=b.device)
     G = torch.zeros_like(U)
     M = np.zeros((s, s))
     omega = _full(1.0, b)
     # initial space: s smoothed power steps fill U, G = A U, M = P G'
+    # (M and f = P r from all-reduced projections: every rank solves the
+    # same s x s systems with the same bits)
     for k in range(s):
         u = r
         g = _pl(pl, A.mv(r))
-        omega = _modify_omega(g, r)
+        omega = _modify_omega(g, r, rw)
         x = x + omega * u
         r = r - omega * g
         U[k] = u
         G[k] = g
-        M[:, k] = _host(P @ g)
+        M[:, k] = _host(_mdot(P, g, rw))
     i = 0
-    while i < maxiter and float(_nn(r)) > tol:
+    while i < maxiter and float(_nn(r, rw)) > tol:
         # k = 0: step into G_{j+1}, refresh omega
-        c = _dev(np.linalg.solve(M, _host(P @ r)), b)
+        c = _dev(np.linalg.solve(M, _host(_mdot(P, r, rw))), b)
         v = r - c @ G
         q = c @ U
         t = _pl(pl, A.mv(v))
-        omega = _modify_omega(t, v)
+        omega = _modify_omega(t, v, rw)
         x = x + q + omega * v
         r = v - omega * t
         # k = 1..s: rebuild the s directions inside G_{j+1}
         for k in range(s):
-            c = _dev(np.linalg.solve(M, _host(P @ r)), b)
+            c = _dev(np.linalg.solve(M, _host(_mdot(P, r, rw))), b)
             v = r - c @ G
             u_k = c @ U + omega * v
             g_k = _pl(pl, A.mv(u_k))
@@ -498,9 +511,9 @@ def idrs_original(A, b, x0=None, tol=1e-8, maxiter=1000, pl=None,
             r = r - g_k
             U[k] = u_k
             G[k] = g_k
-            M[:, k] = _host(P @ g_k)
+            M[:, k] = _host(_mdot(P, g_k, rw))
         i += s + 1
-    return x, i, _nn(r)
+    return x, i, _nn(r, rw)
 
 
 # ---------------------------------------------------------------------------
@@ -567,25 +580,27 @@ def gmres(A, b, x0=None, tol=1e-8, maxiter=1000, pl=None, s: int = 20):
 # ---------------------------------------------------------------------------
 
 def lsqr(A, b, x0=None, tol=1e-8, maxiter=1000, pl=None):
-    _whole_only(A, "lsqr")
+    """LSQR: its products A x and A.T u (``tmv``; on a row-sharded
+    operator each window's share summed onto the windows)."""
     del pl  # LSQR runs unpreconditioned (as the reference)
+    rw = _rows(A)
     x = torch.zeros_like(b) if x0 is None else x0
-    sqrt_n = math.sqrt(b.shape[0])
+    sqrt_n = math.sqrt(b.shape[0] if rw is None else rw.n)
     u = b - A.mv(x)
-    beta = _norm(u)
+    beta = _norm(u, rw)
     u = u / _nonzero(beta)
     v = A.tmv(u)
-    alpha = _norm(v)
+    alpha = _norm(v, rw)
     v = v / _nonzero(alpha)
     w = v
     phibar, rhobar = beta, alpha
     i = 0
     while i < maxiter and float(phibar) / sqrt_n > tol:
         u = A.mv(v) - alpha * u
-        beta = _norm(u)
+        beta = _norm(u, rw)
         u = u / _nonzero(beta)
         v = A.tmv(u) - beta * v
-        alpha = _norm(v)
+        alpha = _norm(v, rw)
         v = v / _nonzero(alpha)
         rho = torch.sqrt(rhobar ** 2 + beta ** 2)
         c_ = rhobar / rho
@@ -597,7 +612,7 @@ def lsqr(A, b, x0=None, tol=1e-8, maxiter=1000, pl=None):
         x = x + (phi / rho) * w
         w = v - (theta / rho) * w
         i += 1
-    return x, i, _nn(b - A.mv(x))
+    return x, i, _nn(b - A.mv(x), rw)
 
 
 # ---------------------------------------------------------------------------
@@ -629,32 +644,32 @@ def cgs(A, b, x0=None, tol=1e-8, maxiter=1000, pl=None):
 def cgs2(A, b, x0=None, tol=1e-8, maxiter=1000, pl=None, s0=None):
     """CGS2 with a second, random shadow vector ``s0`` (default: normal
     numbers seeded 1)."""
-    _whole_only(A, "cgs2")
+    rw = _rows(A)
     x, r = _prep(A, b, x0, pl)
     r0 = r
-    s0 = _shadow(s0, 1, b.shape, b)
+    s0 = _shadow(s0, 1, (b.shape[0] if rw is None else rw.n,), b, rw)
     alpha = alphabar = sigma = sigmabar = _full(1.0, b)
     u = w = s_ = torch.zeros_like(b)
     i = 0
-    while i < maxiter and float(_nn(r)) > tol:
-        rho = _dot(r, r0)
+    while i < maxiter and float(_nn(r, rw)) > tol:
+        rho = _dot(r, r0, rw)
         beta = (1.0 / alphabar) * rho / sigma
         v = r + beta * u
-        rhobar = _dot(r, s0)
+        rhobar = _dot(r, s0, rw)
         betabar = (1.0 / alpha) * rhobar / sigmabar
         t = r + betabar * s_
         w = t + beta * (u + betabar * w)
         cv = _pl(pl, A.mv(w))
-        sigma = _dot(cv, r0)
+        sigma = _dot(cv, r0, rw)
         alpha = rho / sigma
         s_ = t - alpha * cv
-        sigmabar = _dot(cv, s0)
+        sigmabar = _dot(cv, s0, rw)
         alphabar = rhobar / sigmabar
         u = v - alphabar * cv
         x = x + alpha * v + alphabar * s_
         r = _pl(pl, b - A.mv(x))
         i += 1
-    return x, i, _nn(r)
+    return x, i, _nn(r, rw)
 
 
 # ---------------------------------------------------------------------------
@@ -668,26 +683,27 @@ def tfqmr(A, b, x0=None, tol=1e-8, maxiter=1000, pl=None, jitter=None):
     avoids the exact Lanczos breakdown of r0* = r0 on symmetric
     systems; tau is the quasi-residual bound of the stop test, and the
     true residual is returned at exit."""
-    _whole_only(A, "tfqmr")
+    rw = _rows(A)
+    n = b.shape[0] if rw is None else rw.n
     x, r = _prep(A, b, x0, pl)
-    r0 = r + 0.1 * _norm(r) * _shadow(jitter, 2, b.shape, b)
-    sqrt_n = math.sqrt(b.shape[0])
+    r0 = r + 0.1 * _norm(r, rw) * _shadow(jitter, 2, (n,), b, rw)
+    sqrt_n = math.sqrt(n)
     r_cgs = r
     p = u = r
     v = _pl(pl, A.mv(p))
     d = torch.zeros_like(b)
-    tau = _norm(r)
+    tau = _norm(r, rw)
     r_norm = tau
-    rho = _dot(r, r0)
+    rho = _dot(r, r0, rw)
     theta = eta = _full(0.0, b)
     i = 0
     while i < maxiter and float(tau) / sqrt_n > tol:
-        alpha = rho / _dot(v, r0)
+        alpha = rho / _dot(v, r0, rw)
         q = u - alpha * v
         w = u + q
         r_cgs = r_cgs - alpha * _pl(pl, A.mv(w))
         r_norm_old = r_norm
-        r_norm = _norm(r_cgs)
+        r_norm = _norm(r_cgs, rw)
         # two QMR-smoothed half updates
         d = u + (theta ** 2 * eta / alpha) * d
         theta = r_norm_old / tau
@@ -701,11 +717,11 @@ def tfqmr(A, b, x0=None, tol=1e-8, maxiter=1000, pl=None, jitter=None):
         tau = tau * theta * cf
         eta = cf ** 2 * alpha
         x = x + eta * d
-        rho_new = _dot(r_cgs, r0)
+        rho_new = _dot(r_cgs, r0, rw)
         beta = rho_new / rho
         u = r_cgs + beta * q
         p = u + beta * (q + beta * p)
         v = _pl(pl, A.mv(p))
         rho = rho_new
         i += 1
-    return x, i, _nn(_pl(pl, b - A.mv(x)))
+    return x, i, _nn(_pl(pl, b - A.mv(x)), rw)

@@ -389,15 +389,21 @@ def _probe_level(hier: MGHierarchy, state, level: int,
 
 def _calibrate(hier, state, level, dtype, device, v0=None):
     """Power-iteration estimate of rho(D^-1 A); damped-Jacobi omega as a
-    0-d tensor (nothing is read back)."""
+    0-d tensor (nothing is read back).  At a row-sharded level the start
+    vector is drawn and normalised whole, then cut to the window, and
+    each norm is the whole vector's (``RowWindow.norm``)."""
     shape = (hier.channels,) + hier.shapes[level]
     v = (_start_vector(3 + level, shape, dtype, device) if v0 is None
          else _as_start(v0, shape, dtype, device))
     v = v / torch.linalg.norm(v)
+    rows = state[level].get("rows")
+    norm = torch.linalg.norm
+    if rows is not None:
+        v, norm = rows.lattice_local(v, 1), rows.norm
     lam = None
     for _ in range(hier.n_power):
         w = _diag_solve(state[level], _apply_level(hier, state, level, v))
-        lam = torch.linalg.norm(w)
+        lam = norm(w)
         v = w / torch.where(lam == 0, torch.ones_like(lam), lam)
     lam = lam * 1.1                        # safety headroom
     return (4.0 / 3.0) / torch.where(lam == 0, torch.ones_like(lam), lam)
@@ -426,22 +432,21 @@ def _floored_inv(d: torch.Tensor) -> torch.Tensor:
 def _fine_diag_blocks(A: OffsetMatrix, C: int,
                       shape: Tuple[int, ...]) -> torch.Tensor:
     """Same-node channel-coupling blocks [C, C, *S] of the fine operator,
-    read from the d=0 dense segments (absent pairs are zero)."""
-    lo = A.layout
-    grp = lo.pallas_groups[0]
-    n_cp = grp.n_cp
+    read from the d=0 dense segments (absent pairs are zero); over a row
+    window ``shape`` is the window's (its c1 - c0 points)."""
+    grp = A.layout.pallas_groups[0]
+    c0, c1 = A.window.cps[0]
+    slab = A.vals[A.window.group_range(0)].view(len(grp.units), grp.n_off,
+                                                c1 - c0)
+    k0 = grp.offsets.index(0)
     blocks = [[None] * C for _ in range(C)]
-    for (row0, col0, _ncp_s, d, b) in lo.segments:
-        if d != 0:
-            continue
-        pd = (row0 - grp.dof_offset) // n_cp
-        pb = (col0 - grp.dof_offset) // n_cp
-        blocks[pd][pb] = A.vals[b:b + n_cp]
-    z = torch.zeros(n_cp, dtype=A.vals.dtype, device=A.vals.device)
+    for g, (pd, pb) in enumerate(grp.units):
+        blocks[pd][pb] = slab[g, k0]
+    z = torch.zeros(c1 - c0, dtype=A.vals.dtype, device=A.vals.device)
     M = torch.stack([torch.stack([blocks[i][j] if blocks[i][j] is not None
                                   else z for j in range(C)])
                      for i in range(C)])
-    return M.reshape((C, C) + shape)
+    return M.reshape((C, C) + tuple(shape))
 
 
 def _inv_blocks(M: torch.Tensor, C: int) -> torch.Tensor:
@@ -475,17 +480,33 @@ def mg_setup(hier: MGHierarchy, A: OffsetMatrix,
 
     ``mask``: flat [n_cp] occupancy (1.0 real / 0.0 ghost) or None; see
     mask_for_domain.  ``starts``: optional start vectors of the smoother
-    calibration, one per level 0..n_levels-2 (default: seeded 3+level)."""
+    calibration, one per level 0..n_levels-2 (default: seeded 3+level).
+
+    ``A`` a row-sharded operator (``parallel.rowshard.RowShardedOp``):
+    the fine level holds the rank's window, as ``local_mg_state`` cuts a
+    whole setup (the window's matrix and the window under "rows"; mask,
+    smoother diagonal and channel blocks [.., c1 - c0]); the coarse
+    levels are probed through the gathered restriction and computed
+    whole on every rank from the same bits."""
+    rows = getattr(A, "row_window", None)
+    if rows is not None:
+        A = A.inner
     dtype, device = A.vals.dtype, A.vals.device
     C = hier.channels
     state: List[dict] = [{"A": A}]
+    fine = hier.shapes[0]
+    if rows is not None:
+        state[0]["rows"] = rows
+        c0, c1 = rows.mine.cps[0]
+        fine = (c1 - c0,)
     if mask is not None:
-        state[0]["mask"] = mask.reshape((1,) + hier.shapes[0]).to(dtype)
-    d0 = A.diag().reshape((C,) + hier.shapes[0])
+        m = mask.reshape((1,) + hier.shapes[0]).to(dtype)
+        state[0]["mask"] = m if rows is None else rows.lattice_local(m, 1)
+    d0 = A.diag().reshape((C,) + fine)
     state[0]["inv_diag"] = _safe_inv(d0)
     if hier.block_smooth and C > 1:
         state[0]["inv_diag_blk"] = _inv_blocks(
-            _fine_diag_blocks(A, C, hier.shapes[0]), C)
+            _fine_diag_blocks(A, C, fine), C)
     state[0]["omega"] = _calibrate(hier, state, 0, dtype, device,
                                    None if starts is None else starts[0])
     return _setup_coarser_levels(hier, state, dtype, device, starts)

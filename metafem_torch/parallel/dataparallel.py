@@ -96,17 +96,23 @@ def shard_domain_state(state: dict, mesh) -> dict:
     # the records say so (``rowshard.held``); else they stay whole
     cut_to = rows if rows.even else None
     out["cut_to"] = cut_to
+    # a whole step gathers the cut caches back once and keeps them here
+    # (``rowshard.uncut``; shared by the step's shallow copies)
+    out["uncut"] = {}
     if state.get("mg_frozen") is not None:
         out["mg_frozen"] = shard_mg_state(state["mg_frozen"], rows)
     if state.get("K_linear_td") is not None:
         out["K_linear_td"] = put_divisible(state["K_linear_td"], sb, mesh)
     if state.get("refined") is not None:
+        # the matrices that steps built from the whole record, and what
+        # they gathered, belong to its layout
         ref = {k: v for k, v in state["refined"].items()
-               if k not in ("A_mats", "A_packed")}   # whole-matrix caches
+               if k not in ("A_mats", "A_packed", "uncut", "windows")}
         for k in ("A", "A_hi", "A_lo", "b", "b_hi", "b_lo"):
             if ref.get(k) is not None:
                 ref[k] = put_divisible(ref[k], sb if k[0] == "A" else rb,
                                        mesh)
         ref["cut_to"] = cut_to
+        ref["uncut"] = {}
         out["refined"] = ref
     return out

@@ -32,13 +32,31 @@ leg has them), and a repeat of the sharded step bitwise equal to the
 first.  Rank 0 writes each leg's arrays to ``DIR/<leg>.npz`` and the
 records to ``DIR/summary.json``.  Every failure raises.
 
-Two legs for one card (``chip_smoke.phase_multidevice``) run at full
+Four more legs (``MENU_LEGS``, not run by default):
+
+9. ``mg_fresh_step``: the row-sharded jitted step with its multigrid
+   set up per step on the window, and that window setup against the
+   whole setup of the same tangent (levels >= 1 bitwise);
+10. ``whole_on_cut``: whole steps (multigrid jitted, refined, df32
+    refined) on states cut to the windows, each bitwise the step on the
+    state's uncut twin;
+11. ``solver_menu``: IDR(s) original, LSQR, CGS2 and TFQMR on the
+    row-sharded Jacobi-scaled tangent, shadows from ``--shadows FILE``
+    (an .npz with the whole P, s0 and jitter);
+12. ``mg_fresh_c2``: ``mg_fresh_step`` on the C=2 cantilever with block
+    smoothing.
+
+Four legs for one card (``chip_smoke.phase_multidevice``) run at full
 width with ``--device cuda``: ``flagship`` (the refined multigrid step
 with float64 residuals, then its df32 twin, on the flagship at
-``--nel``) and ``pikachu`` (the unstructured auxmg refined step on the
-pikachu brick at ``--pikachu-nel``); each also holds the window's
-kernels to their plain versions and a repeat, and records per rank the
-window, launches, peak memory, collective bytes and milliseconds.
+``--nel``), ``pikachu`` (the unstructured auxmg refined step on the
+pikachu brick at ``--pikachu-nel``), ``flagship_jitted`` (the float64
+flagship's jitted step with per-step multigrid setup, then a whole
+``reuse_mg`` step on its cut state) and ``flagship_menu`` (the four
+solvers above, 30 iterations each, on its tangent); each also holds
+the window's kernels to their plain versions and a repeat, and records
+per rank the window, launches, peak memory, collective bytes and
+milliseconds.
 """
 
 from __future__ import annotations
@@ -63,7 +81,15 @@ from metafem_torch.parallel.rowshard import row_window
 
 LEGS = ("assembly", "element_step", "row_step", "mg_step", "refined",
         "refined_df32", "auxmg", "nested")
-CHIP_LEGS = ("flagship", "pikachu")
+#: the legs of the solver menu, the per-step multigrid setup on a row
+#: window and the whole steps on cut states
+MENU_LEGS = ("mg_fresh_step", "whole_on_cut", "solver_menu", "mg_fresh_c2")
+CHIP_LEGS = ("flagship", "pikachu", "flagship_jitted", "flagship_menu")
+#: the solvers that read shadows from ``--shadows`` (keys P, s0, jitter)
+MENU = ("idrs_original", "lsqr", "cgs2", "tfqmr")
+SHADOW_KEY = {"idrs_original": "P", "cgs2": "s0", "tfqmr": "jitter"}
+#: the card's menu: a fixed number of iterations at tol 0
+MENU_CHIP_ITERS = 30
 #: the reference's bars
 TOL_ASSEMBLY = 1e-12
 TOL_X = 1e-8
@@ -158,6 +184,48 @@ def tet_domain(nel=(6, 4, 4), lattice_pad=1, dtype=torch.float64,
         mesh0.n_cp), 0.0))
     dom.set_field(wp, "s", np.where(real, 1600.0 * rng.random(mesh0.n_cp),
                                     0.0))
+    dom.refresh_fields()
+    dom.assemble_x()
+    return dom
+
+
+def elastic_domain_2d(nel=(12, 4), lattice_pad=1, dtype=torch.float64,
+                      device="cpu") -> FEM_Domain:
+    """tests/test_multigrid.py's ``_elastic_domain_2d``: the plane-strain
+    cantilever, two coupled displacement channels (C=2), clamped by a
+    penalty on the left end and sheared on the right; ghost control
+    points from ``lattice_pad``."""
+    L, H = 4.0, 1.0
+    vert, conn = mf.make_square((L, H), nel)
+    geo = mf.construct_total_mesh(vert, conn)
+    dom = FEM_Domain(2, dtype=dtype, device=device)
+    wp = dom.add_workpiece(geo)
+    left = mf.select_facets(geo, lambda c: c[:, 0] < 1e-9)
+    right = mf.select_facets(geo, lambda c: c[:, 0] > L - 1e-9)
+    bg_fix = dom.add_boundary(wp, left)
+    bg_load = dom.add_boundary(wp, right)
+    E, nu = 1.0, 0.3
+    lam = E * nu / ((1 + nu) * (1 - 2 * nu))
+    mu = E / (2 * (1 + nu))
+    d = dom.internal_var("d")
+    sl = dom.external_var("sl", "CONTROLPOINT_VAR", "SYMMETRIC_TENSOR")
+    n = dom.sym("n")
+    delta = dom.sym("delta")
+    i, j, m = mf.indices("i j m")
+    eps = dom.define("eps", [i, j], (d[i].d(j) + d[j].d(i)) / 2.0)
+    sig = dom.define("sig", [i, j],
+                     lam * delta[i, j] * eps[m, m] + 2.0 * mu * eps[i, j])
+    dom.assign_workpiece_weakform(wp, -Bilinear(eps[i, j], sig[i, j]))
+    dom.assign_boundary_weakform(wp, bg_fix, 1e3 * E * Bilinear(d[i], -d[i]))
+    dom.assign_boundary_weakform(wp, bg_load,
+                                 Bilinear(d[i], sl[i, j] * n[j]))
+    dom.initialize_local_assembly()
+    dom.mesh_classical(itp_order=2, itg_order=5, itp_type="Serendipity",
+                       lattice_pad=lattice_pad)
+    dom.assemble_global_variables()
+    dom.compile()
+    mesh = dom.workpieces[wp].mesh
+    dom.set_field(wp, "sl3", np.full(mesh.n_cp, 1e-3))   # shear sigma_xy
     dom.refresh_fields()
     dom.assemble_x()
     return dom
@@ -262,6 +330,247 @@ def _step_pair(step_sh, step0, sharded, state, x0, mesh, what):
     return x_sh, x_w, rec
 
 
+def uncut_twin(sharded: dict, state: dict) -> dict:
+    """The state ``shard_domain_state`` made, with its row-shaped caches
+    whole (``K_linear_td``, the multigrid state, the refined A_td/b and
+    their two-float pairs: as it leaves them where the windows do not
+    divide) and the same element blocks: what a whole step on the cut
+    state must reproduce bit for bit."""
+    out = {k: v for k, v in sharded.items() if k != "uncut"}
+    out["cut_to"] = None
+    for k in ("K_linear_td", "mg_frozen"):
+        if state.get(k) is not None:
+            out[k] = state[k]
+    if sharded.get("refined") is not None:
+        ref = {k: v for k, v in sharded["refined"].items()
+               if k not in ("uncut", "windows", "A_mats", "A_packed")}
+        for k in ("A", "A_hi", "A_lo", "b", "b_hi", "b_lo"):
+            if state["refined"].get(k) is not None:
+                ref[k] = state["refined"][k]
+        ref["cut_to"] = None
+        out["refined"] = ref
+    return out
+
+
+def _cut_pair(dom, step, x0, mesh, what, pair_keys=()):
+    """A whole ``step`` on the state cut to the windows, twice (the
+    second on the gathered caches it kept), against the same step on its
+    uncut twin: bitwise, both below 1e-9; the record (the first step's
+    seconds, packed kernel launches, collective bytes and peak device
+    memory: the gathers included) and (x, x_twin)."""
+    state = dom._runtime_state()
+    sharded = shard_domain_state(state, mesh)
+    rows = row_window(dom.pattern.offset_layout, mesh)
+    if sharded["cut_to"] is not rows:
+        raise AssertionError(f"{what}: the windows did not divide")
+    ref = sharded.get("refined") or {}
+    cut = [k for k in ("K_linear_td",) if sharded.get(k) is not None
+           and sharded[k].shape != state[k].shape] + [
+        "refined." + k for k in ("A", "b") + tuple(pair_keys)
+        if ref.get(k) is not None
+        and ref[k].shape != state["refined"][k].shape]
+    if sharded.get("mg_frozen") is not None:
+        if sharded["mg_frozen"][0].get("rows") is not rows:
+            raise AssertionError(f"{what}: the fine level was not cut")
+        cut.append("mg_frozen")
+    for k in pair_keys:
+        if "refined." + k not in cut:
+            raise AssertionError(f"{what}: {k} was not cut")
+    twin = uncut_twin(sharded, state)
+    device = x0.device
+    offset_spmv.reset_launches()
+    bsr_tail.reset_launches()
+    comm.reset_counts()
+    _peak_reset(device)
+    _sync(device)
+    t0 = time.perf_counter()
+    x_c, _, res_c, it_c = step(sharded, x0, 0.0, 1.0)
+    _sync(device)
+    s_cut = time.perf_counter() - t0
+    launches, moved, peak = _launches(), comm.counts(), _peak(device)
+    gathered = sorted(sharded["uncut"]) + sorted(
+        (sharded.get("refined") or {}).get("uncut", {}))
+    x_c2 = step(sharded, x0, 0.0, 1.0)[0]
+    x_t, _, res_t, it_t = step(twin, x0, 0.0, 1.0)
+    if not (torch.equal(x_c, x_t) and torch.equal(x_c2, x_c)
+            and it_c == it_t):
+        raise AssertionError(f"{what}: the whole step on the cut state is "
+                             f"not bitwise the step on the uncut twin "
+                             f"({_max_rel(x_c, x_t):.3e})")
+    if not (float(res_c) < TOL_RES):
+        raise AssertionError(f"{what}: residual {float(res_c):.3e}")
+    its = same_on_all_ranks(it_c, mesh, f"{what} iterations")
+    return ({"res": float(res_c), "iters": int(it_c),
+             "iters_all_ranks": its, "bitwise": True, "s": s_cut,
+             "launches": launches, "comm": moved, "peak_bytes": peak,
+             "gathered": gathered, "cut": cut}, (x_c, x_t))
+
+
+def setup_vs_whole(dom, mesh, mg_opts, min_levels: int = 3) -> dict:
+    """``multigrid.mg_setup`` on the window of the tangent at x
+    (``assemble_tangent``; a ``RowShardedOp``) against the whole setup
+    of the same tangent in the same rank: the fine level's window pieces
+    bitwise those of the whole one, the level-0 damping factor within
+    1e-12 (its power steps take the whole norm from the windows' norms),
+    levels >= 1 and the coarsest inverse bitwise (the window products
+    concatenate bitwise; the restriction runs on the gathered vector);
+    the largest differences and the seconds of each setup."""
+    from metafem_torch.linsolve import multigrid
+    from metafem_torch.parallel.rowshard import RowShardedOp, local_mg_state
+    hier = multigrid.hierarchy_for_domain(dom, **mg_opts)
+    if hier.n_levels < min_levels:
+        raise AssertionError(f"setup: {hier.n_levels} levels, not >= "
+                             f"{min_levels}")
+    A, _ = dom.assemble_tangent()
+    rows = row_window(A.layout, mesh)
+    mask = dom._runtime_state().get("mg_mask")
+    _sync(A.vals.device)
+    t0 = time.perf_counter()
+    sh = multigrid.mg_setup(hier, RowShardedOp(A, rows), mask)
+    _sync(A.vals.device)
+    s_sh = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    whole = multigrid.mg_setup(hier, A, mask)
+    _sync(A.vals.device)
+    s_w = time.perf_counter() - t0
+    w0 = local_mg_state(whole, rows)[0]
+    for k in ("inv_diag", "mask", "inv_diag_blk"):
+        if (k in w0) != (k in sh[0]) or (k in w0 and not torch.equal(
+                sh[0][k], w0[k])):
+            raise AssertionError(f"setup: the window's {k} is not the "
+                                 f"whole setup's window")
+    if not torch.equal(sh[0]["A"].vals, w0["A"].vals):
+        raise AssertionError("setup: the window's operator differs")
+    om = _max_rel(sh[0]["omega"], whole[0]["omega"])
+    if not om <= 1e-12:
+        raise AssertionError(f"setup: level-0 omega off by {om:.3e}")
+    coarse = 0.0
+    for lvl in range(1, hier.n_levels):
+        for k, v in whole[lvl].items():
+            coarse = max(coarse, float((_f64(sh[lvl][k])
+                                        - _f64(v)).abs().max()))
+    if coarse != 0.0:
+        raise AssertionError(f"setup: levels >= 1 differ from the whole "
+                             f"setup's by {coarse:.3e}")
+    return {"n_levels": hier.n_levels, "channels": hier.channels,
+            "omega0_rel_diff": om, "coarse_max_abs_diff": coarse,
+            "s": s_sh, "s_whole": s_w}
+
+
+class SplitRows:
+    """A row window's reductions over whole vectors in one process: fn
+    of each window's part (``WindowLayout.local``), as that window's rank
+    forms it, the parts added in rank order as ``comm.all_reduce`` adds
+    the ranks'.  The solvers' row window of ``SplitOp``."""
+
+    def __init__(self, rows):
+        self.windows, self.n = rows.windows, rows.n
+
+    def local(self, v):
+        return v
+
+    def reduce(self, fn, *vs):
+        return comm._sum_ranks(torch.stack(
+            [fn(*(w.local(v) for v in vs)) for w in self.windows]))
+
+
+class SplitOp:
+    """The whole matrix A, with the additions of a solve on its row
+    windows ``rows`` in the ranks' order: products whole (the window
+    products concatenate bitwise to them), dots through ``SplitRows``,
+    A.T x the windows' shares (``OffsetMatrix.tmv`` over each window)
+    added in rank order, as ``RowShardedOp.tmv`` adds them.  A whole
+    solve over it is what the row-sharded solve of A computes, bit for
+    bit, without collectives."""
+
+    def __init__(self, A, rows):
+        from metafem_torch.linsolve.block_offset import OffsetMatrix
+        self.A, self.row_window = A, SplitRows(rows)
+        self._parts = [(w, OffsetMatrix.from_values(
+            A.vals[torch.as_tensor(w.storage, device=A.vals.device)],
+            A.layout, w)) for w in rows.windows]
+
+    def mv(self, x):
+        return self.A.mv(x)
+
+    def tmv(self, x):
+        return comm._sum_ranks(torch.stack(
+            [P.tmv(w.local(x)) for w, P in self._parts]))
+
+    @property
+    def n(self):
+        return self.A.n
+
+
+def menu_solves(run, A, b, tol, maxiter, shadows, bar, solvers=MENU):
+    """Each solver of ``solvers`` on the right-Jacobi scaled A
+    (``pr_jacobi``) row-sharded (the window of A, the rank's rows of b)
+    and whole in the same rank: its y gathered within ``bar`` x max|y|
+    of the whole solve over ``SplitOp`` (the whole operator, its dots
+    added in the ranks' order), and bitwise equal to it; the iteration
+    counts equal on every rank.  Also recorded, held to no bar: how far
+    y lies from the whole solve with ``torch.dot``'s own order
+    (``max_rel_vs_plain``; a CGS-type iterate short of convergence
+    magnifies a last-bit difference of its dots).  Shadows (whole
+    arrays) from ``shadows``, else the solvers' own seeded draws.  The
+    whole solves run one rank at a time.  Per solver: iterations,
+    residuals, ms of the sharded and the plain whole solve, the packed
+    kernel's launches and the collectives' bytes of the sharded one."""
+    from metafem_torch.linsolve.precond import pr_jacobi
+    from metafem_torch.parallel.rowshard import RowShardedOp
+    device, mesh = run.device, run.mesh
+    rows = row_window(A.layout, mesh)
+    As_w, _ = pr_jacobi(RowShardedOp(A, rows))
+    As, _ = pr_jacobi(A)
+    As_split = SplitOp(As, rows)
+    b_w = rows.local(b)
+    rec, ys = {}, {}
+    for name in solvers:
+        fn = getattr(krylov, name)
+        kw = ({SHADOW_KEY[name]: shadows[SHADOW_KEY[name]]}
+              if name in SHADOW_KEY and SHADOW_KEY[name] in shadows else {})
+        dist.barrier()
+        offset_spmv.reset_launches()
+        comm.reset_counts()
+        _sync(device)
+        t0 = time.perf_counter()
+        y_w, it, res = fn(As_w, b_w, tol=tol, maxiter=maxiter, **kw)
+        _sync(device)
+        ms = (time.perf_counter() - t0) * 1e3
+        launches, moved = offset_spmv.group_mv.launches, comm.counts()
+        y = rows.gather(y_w)
+
+        def whole():
+            split = fn(As_split, b, tol=tol, maxiter=maxiter, **kw)
+            _sync(device)
+            t = time.perf_counter()
+            plain = fn(As, b, tol=tol, maxiter=maxiter, **kw)
+            _sync(device)
+            return split, plain, (time.perf_counter() - t) * 1e3
+        (y0, it0, res0), (y_p, it_p, _), ms0 = one_rank_at_a_time(whole,
+                                                                  mesh)
+        its = same_on_all_ranks(it, mesh, f"{name} iterations")
+        err = _max_rel(y, y0)
+        if not (err <= bar and torch.equal(y, y0) and it == it0):
+            raise AssertionError(f"{name}: sharded y off the whole solve's "
+                                 f"by {err:.3e} of max|y| (bar {bar:.0e}, "
+                                 f"bitwise expected), {it} iterations "
+                                 f"(whole {it0})")
+        if device.type == "cuda" and launches <= 0:
+            raise AssertionError(f"{name}: the sharded solve launched no "
+                                 f"packed kernel")
+        rec[name] = {"iters": int(it), "iters_whole": int(it0),
+                     "iters_all_ranks": its, "res": float(res),
+                     "res_whole": float(res0), "max_rel_vs_whole": err,
+                     "bitwise": True, "iters_plain": int(it_p),
+                     "max_rel_vs_plain": _max_rel(y, y_p),
+                     "ms": ms, "ms_whole": ms0, "launches": launches,
+                     "comm": moved}
+        ys[name] = y
+        ys[name + "_whole"] = y0
+    return rec, ys
+
+
 # ---------------------------------------------------------------------------
 # the legs
 # ---------------------------------------------------------------------------
@@ -270,7 +579,7 @@ class Run:
     """The legs' shared domains and outputs on one rank."""
 
     def __init__(self, mesh, device, out_dir, nel=(800, 400),
-                 pikachu_nel=(24, 17, 17)):
+                 pikachu_nel=(24, 17, 17), shadows=None):
         self.mesh = mesh
         self.device = device
         self.out = out_dir
@@ -278,6 +587,12 @@ class Run:
         _, self.rank, self.size = comm.row_group(mesh)
         self.records = {}
         self._graft = None
+        self._flag64 = None
+        #: whole shadow arrays of the menu's solvers (``--shadows``)
+        self.shadows = {}
+        if shadows:
+            with np.load(shadows) as f:
+                self.shadows = {k: f[k] for k in f.files}
 
     def save(self, leg: str, rec: dict, **arrays) -> None:
         self.records[leg] = rec
@@ -438,12 +753,124 @@ class Run:
             sv_func=krylov.bicgstab, maxiter=100, max_refine=10,
             max_pass=1, precond="mg"))
 
+    # the menu legs
+    def mg_fresh_step(self):
+        """The row-sharded jitted step with its multigrid set up per step
+        on the window (``mg_setup`` of a ``RowShardedOp``); beside it the
+        window setup against the whole setup on the same tangent.  The
+        graft lattice, (12, 5) on 4 ranks, coarsens once at any
+        ``max_coarse``: its next level, (3, 2), falls under
+        ``build_hierarchy``'s 3-point floor, so the hierarchy has 2
+        levels here (3 in ``mg_fresh_c2``)."""
+        dom = self.graft()
+        if dom._k_linear_td is None:
+            dom.freeze_linear_tangent()
+        self._mg_fresh("mg_fresh_step", dom, {"max_coarse": 16}, 2)
+
+    def mg_fresh_c2(self):
+        """``mg_fresh_step`` on the C=2 plane-strain cantilever with
+        block smoothing, nel=(12, 4), lattice_pad=N: 3 levels."""
+        dom = elastic_domain_2d((12, 4), lattice_pad=self.size,
+                                device=self.device)
+        dom.converge_tol = 1e-9
+        dom.freeze_linear_tangent()
+        self._mg_fresh("mg_fresh_c2", dom,
+                       {"max_coarse": 16, "block_smooth": True}, 3)
+
+    def _mg_fresh(self, leg, dom, mg_opts, min_levels):
+        state = dom._runtime_state()
+        sharded = shard_domain_state(state, self.mesh)
+        kw = dict(sv_func=krylov.bicgstab, maxiter=200, max_newton=6,
+                  max_pass=2, precond="mg", mg_opts=mg_opts,
+                  static_k_linear=True)
+        x, xw, rec = _step_pair(
+            dom.make_jitted_step(rowshard_mesh=self.mesh, **kw),
+            dom.make_jitted_step(**kw), sharded, state, dom.x, self.mesh,
+            leg)
+        rec["setup"] = setup_vs_whole(dom, self.mesh, mg_opts, min_levels)
+        self.save(leg, rec, x=x, x_whole=xw)
+
+    def whole_on_cut(self):
+        """Whole steps on states that ``shard_domain_state`` cut to the
+        windows, each bitwise the whole step on the uncut twin
+        (``uncut_twin``): the graft domain's multigrid jitted step
+        (``reuse_mg``) and refined step, and the two-float refined step
+        on the float32 strip (16, 8) with its A_hi/A_lo/b_hi/b_lo cut."""
+        dom = self.graft()
+        if dom._mg_frozen is None:
+            if dom._k_linear_td is None:
+                dom.freeze_linear_tangent()
+            dom.setup_mg(tune=False)
+        if dom._refined is None:
+            dom.freeze_refined_residual()
+        rec, arrays = {}, {}
+        x0 = dom.x.to(torch.float64)
+        for name, make, kw in (
+                ("mg_step", dom.make_jitted_step, dict(
+                    sv_func=krylov.bicgstab, maxiter=200, max_newton=6,
+                    max_pass=2, precond="mg", reuse_mg=True,
+                    static_k_linear=True)),
+                ("refined", dom.make_refined_step, dict(
+                    sv_func=krylov.bicgstab, maxiter=200, max_refine=10,
+                    max_pass=1, precond="mg"))):
+            rec[name], arrays[name] = _cut_pair(dom, make(**kw), x0,
+                                                self.mesh, name)
+        strip = strip_domain((16, 8), lattice_pad=4, dtype=torch.float32,
+                             device=self.device)
+        strip.converge_tol = 1e-9
+        strip.freeze_linear_tangent()
+        strip.setup_mg(tune=False)
+        strip.freeze_refined_residual()
+        step = strip.make_refined_step(
+            sv_func=krylov.bicgstab, maxiter=100, max_refine=10,
+            max_pass=1, precond="mg", residual_mode="df32")
+        # a whole step splits the freeze into its two-float pairs, so
+        # that shard_domain_state cuts them
+        step(strip._runtime_state(), strip.x.to(torch.float64), 0.0, 1.0)
+        rec["refined_df32"], arrays["refined_df32"] = _cut_pair(
+            strip, step, strip.x.to(torch.float64), self.mesh,
+            "refined_df32", pair_keys=("A_hi", "A_lo", "b_hi", "b_lo"))
+        self.save("whole_on_cut", rec, **{
+            f"{k}_{w}": v for k, (x, xt) in arrays.items()
+            for w, v in (("x", x), ("x_twin", xt))})
+
+    def solver_menu(self):
+        """IDR(s) original, LSQR, CGS2 and TFQMR on the row-sharded,
+        right-Jacobi scaled tangent of the graft domain at its x
+        (``assemble_tangent``) against the whole operator, to tol 1e-10
+        within 1000 iterations; shadows from ``--shadows``."""
+        dom = self.graft()
+        A, b = dom.assemble_tangent()
+        rec, ys = menu_solves(self, A, b, tol=1e-10, maxiter=1000,
+                              shadows=self.shadows, bar=TOL_X)
+        self.save("solver_menu", rec, b=b, **ys)
+
     # for one card
     def flagship(self):
         _flagship_leg(self)
 
     def pikachu(self):
         _pikachu_leg(self)
+
+    def flag64(self):
+        """The float64 flagship at ``--nel`` with lattice_pad=N, linear
+        tangent frozen, converge_tol 1e-9 (the card's menu legs)."""
+        if self._flag64 is None:
+            from metafem_torch import bench
+            t0 = time.perf_counter()
+            dom = bench.build_domain(self.nel, device=self.device,
+                                     dtype=torch.float64,
+                                     lattice_pad=self.size)
+            dom.converge_tol = 1e-9
+            dom.freeze_linear_tangent()
+            self._flag64 = (dom, time.perf_counter() - t0)
+        return self._flag64
+
+    def flagship_jitted(self):
+        _flagship_jitted_leg(self)
+
+    def flagship_menu(self):
+        _flagship_menu_leg(self)
 
 
 # ---------------------------------------------------------------------------
@@ -621,8 +1048,10 @@ def _peak(device):
             if device.type == "cuda" else None)
 
 
-def chip_pair(run, leg, dom, kw, kernels) -> dict:
-    """One refined step of ``dom`` row-sharded and whole on this rank:
+def chip_pair(run, leg, dom, kw, kernels, jitted=False) -> dict:
+    """One refined step (``jitted``: one ``make_jitted_step`` step, its
+    Newton count under "refines" and the Krylov iterations of each pass
+    under "krylov") of ``dom`` row-sharded and whole on this rank:
     each run once (plans, packs), then again timed (host clock,
     synchronised) with the peak device memory and, for the sharded one,
     the kernel launches and the bytes through the collectives of that
@@ -636,11 +1065,17 @@ def chip_pair(run, leg, dom, kw, kernels) -> dict:
     state = dom._runtime_state()
     sharded = shard_domain_state(state, mesh)
     rows = row_window(dom.pattern.offset_layout, mesh)
-    step_sh = dom.make_refined_step(rowshard_mesh=mesh, **kw)
-    step0 = dom.make_refined_step(**kw)
+    logs = ([], [])
+    if jitted:
+        step_sh = dom.make_jitted_step(rowshard_mesh=mesh, log=logs[0], **kw)
+        step0 = dom.make_jitted_step(log=logs[1], **kw)
+    else:
+        step_sh = dom.make_refined_step(rowshard_mesh=mesh, **kw)
+        step0 = dom.make_refined_step(**kw)
     x0 = dom.x.to(torch.float64)
     x_first = step_sh(sharded, x0, 0.0, 1.0)[0]    # plans, packs
     dist.barrier()
+    logs[0].clear()
     offset_spmv.reset_launches()
     bsr_tail.reset_launches()
     comm.reset_counts()
@@ -659,6 +1094,7 @@ def chip_pair(run, leg, dom, kw, kernels) -> dict:
 
     def whole():
         step0(state, x0, 0.0, 1.0)
+        logs[1].clear()
         _peak_reset(device)
         _sync(device)
         t0 = time.perf_counter()
@@ -692,6 +1128,11 @@ def chip_pair(run, leg, dom, kw, kernels) -> dict:
                ("b_hi", "A_hi") if kw.get("residual_mode") == "df32"
                else ("b", "A")),
                fine_inv_diag=kw.get("precond", "mg") == "mg")}
+    if jitted:
+        rec["krylov"] = [int(k) for k, _ in logs[0]]
+        rec["krylov_whole"] = [int(k) for k, _ in logs[1]]
+        rec["krylov_all_ranks"] = same_on_all_ranks(
+            sum(rec["krylov"]), mesh, f"{leg} Krylov iterations")
     rec["kernels"] = one_rank_at_a_time(lambda: kernels(sharded, rows),
                                         mesh)
     return rec
@@ -790,6 +1231,79 @@ def _pikachu_leg(run):
         print("[dryrun] pikachu: " + json.dumps(rec), flush=True)
 
 
+def _flagship_jitted_leg(run):
+    """The float64 flagship (``Run.flag64``): the row-sharded jitted
+    step with its multigrid set up per step on the window
+    (``make_jitted_step(precond="mg", static_k_linear=True)``) against
+    the same step whole, to 1e-9; the window setup against the whole
+    one; then ``setup_mg`` and a whole ``reuse_mg`` step on the state
+    cut to the windows, bitwise the step on its uncut twin.  The
+    window's f64 tangent through the packed kernel."""
+    from metafem_torch.parallel.rowshard import RowShardedOp
+    dom, build_s = run.flag64()
+    kw = dict(sv_func=krylov.bicgstab, maxiter=200, max_newton=6,
+              max_pass=2, precond="mg", static_k_linear=True)
+    A, _ = dom.assemble_tangent()
+
+    def k64(sharded, rows):
+        return {"f64_tangent": window_kernels(
+            RowShardedOp(A, rows).inner,
+            _x_probe(rows.n, torch.float64, run.device), run.device)}
+    step = chip_pair(run, "flagship_jitted", dom, kw, k64, jitted=True)
+    del A
+    setup = setup_vs_whole(dom, run.mesh, {})
+    t0 = time.perf_counter()
+    dom.setup_mg(tune=False)
+    setup_mg_s = time.perf_counter() - t0
+    cut, _ = _cut_pair(dom, dom.make_jitted_step(reuse_mg=True, **kw),
+                       dom.x, run.mesh, "flagship_jitted whole_on_cut")
+    cut["setup_mg_s"] = setup_mg_s
+    rec = {"nel": list(run.nel), "dof": dom.pattern.basicfield_size,
+           "build_s": build_s, "step": step, "setup": setup,
+           "whole_on_cut": cut}
+    run.records["flagship_jitted"] = {"ranks": _all_ranks(rec, run.mesh)}
+    if run.rank == 0:
+        print("[dryrun] flagship_jitted: " + json.dumps(rec), flush=True)
+
+
+def _flagship_menu_leg(run):
+    """The four solvers of ``MENU`` on the float64 flagship's row-sharded,
+    right-Jacobi scaled tangent at x, ``MENU_CHIP_ITERS`` iterations at
+    tol 0, each against the whole operator in the same rank
+    (``menu_solves``: within 1e-8 x max|y| and bitwise, the whole solve
+    adding its dots in the ranks' order); the window's scaled tangent
+    through the packed kernel."""
+    from metafem_torch.linsolve.precond import pr_jacobi
+    from metafem_torch.parallel.rowshard import RowShardedOp
+    dom, build_s = run.flag64()
+    A, b = dom.assemble_tangent()
+    rows = row_window(A.layout, run.mesh)
+    _peak_reset(run.device)
+    solves, _ = menu_solves(run, A, b, tol=0.0, maxiter=MENU_CHIP_ITERS,
+                            shadows={}, bar=TOL_X)
+    for name, r in solves.items():
+        if r["iters"] != MENU_CHIP_ITERS:
+            raise AssertionError(f"{name}: {r['iters']} iterations, not "
+                                 f"{MENU_CHIP_ITERS}")
+    W = pr_jacobi(RowShardedOp(A, rows))[0].inner
+    menu = {"rank": run.rank, "window": [list(c) for c in rows.mine.cps],
+            "rows": rows.n_local, "n": rows.n,
+            "storage": rows.mine.n_storage,
+            "n_storage": dom.pattern.n_storage,
+            "peak_bytes": _peak(run.device), "solvers": solves,
+            "launches": {"packed": sum(r["launches"]
+                                       for r in solves.values())},
+            "kernels": one_rank_at_a_time(lambda: {
+                "f64_scaled": window_kernels(
+                    W, _x_probe(rows.n, torch.float64, run.device),
+                    run.device)}, run.mesh)}
+    rec = {"nel": list(run.nel), "dof": dom.pattern.basicfield_size,
+           "build_s": build_s, "menu": menu}
+    run.records["flagship_menu"] = {"ranks": _all_ranks(rec, run.mesh)}
+    if run.rank == 0:
+        print("[dryrun] flagship_menu: " + json.dumps(rec), flush=True)
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda", choices=("cpu", "cuda"))
@@ -799,6 +1313,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--threads", type=int, default=0)
     ap.add_argument("--nel", type=int, nargs=2, default=(800, 400))
     ap.add_argument("--pikachu-nel", type=int, nargs=3, default=(24, 17, 17))
+    ap.add_argument("--shadows", default="",
+                    help="an .npz of the menu's whole shadow arrays "
+                         "(keys P, s0, jitter)")
     args = ap.parse_args(argv)
     if args.threads:
         torch.set_num_threads(args.threads)
@@ -817,10 +1334,11 @@ def main(argv=None) -> dict:
     dist.init_process_group(args.backend, rank=rank, world_size=world)
     try:
         mesh = make_mesh(device=device)
-        run = Run(mesh, device, args.out, args.nel, args.pikachu_nel)
+        run = Run(mesh, device, args.out, args.nel, args.pikachu_nel,
+                  args.shadows)
         t_all = time.perf_counter()
         for leg in args.legs.split(","):
-            if leg not in LEGS + CHIP_LEGS:
+            if leg not in LEGS + MENU_LEGS + CHIP_LEGS:
                 raise ValueError(f"unknown leg {leg!r}")
             t0 = time.perf_counter()
             getattr(run, leg)()

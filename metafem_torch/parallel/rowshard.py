@@ -20,12 +20,20 @@ GSPMD puts them:
 * ``RowShardedOp.mv`` gathers x and runs the window's rows of the
   matrix (an ``OffsetMatrix`` over the window: the hand-written kernels
   on the window's plans);
+* ``RowShardedOp.tmv`` sums every window's share of A.T x
+  (``OffsetMatrix.tmv`` over the window) onto the windows in rank order;
 * the Krylov solvers take the window from the operator
-  (``row_window``) and all-reduce their dots (``krylov._dot``);
+  (``row_window``), all-reduce their dots (``krylov._dot`` through
+  ``RowWindow.reduce``) and draw their shadow spaces whole before
+  keeping the rank's rows;
 * the multigrid V-cycle runs its fine level on the window and its coarse
   levels whole on every rank, on the gathered restriction
-  (``multigrid.vcycle``); the auxiliary-space cycle likewise
-  (``auxmg.AuxMGOperator``).
+  (``multigrid.vcycle``), and so does its setup (``multigrid.mg_setup``
+  of a ``RowShardedOp``); the auxiliary-space cycle likewise
+  (``auxmg.AuxMGOperator``);
+* a whole step on a state that ``shard_domain_state`` cut gathers each
+  cut cache back once (``held``, ``whole_mg_state``: the inverses of the
+  cuts, ``RowWindow.gather_storage``/``gather``/``gather_lattice``).
 
 The sharding objects of the reference are descriptors here (``Sharding``)
 of what a rank holds: an element range, rows, a lattice slab, or all.
@@ -55,9 +63,9 @@ class RowWindow:
     """The row windows of ``layout`` over the mesh's row axes: this
     rank's (``mine``, a ``block_offset.WindowLayout``) and every rank's,
     with the collectives that move vectors and storage between whole and
-    window (``gather``, ``reduce_scatter_rows``,
-    ``reduce_scatter_storage``) and the reductions (``all_reduce``,
-    ``norm``)."""
+    window (``gather``, ``gather_storage``, ``gather_lattice``,
+    ``reduce_scatter_rows``, ``reduce_scatter_storage``) and the
+    reductions (``reduce``, ``norm``)."""
 
     def __init__(self, layout, mesh):
         self.mesh = mesh
@@ -131,8 +139,10 @@ class RowWindow:
         return flat[..., c0:c1]
 
     # -- collectives -----------------------------------------------------
-    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
-        return comm.all_reduce(t, self.mesh)
+    def reduce(self, fn, *vs) -> torch.Tensor:
+        """The sum over ranks of fn of the ranks' windows vs (this rank's
+        given), the same bits on every rank (``comm.all_reduce``)."""
+        return comm.all_reduce(fn(*vs), self.mesh)
 
     def norm(self, v: torch.Tensor) -> torch.Tensor:
         """The 2-norm of the whole vector whose window is v: the ranks'
@@ -144,18 +154,53 @@ class RowWindow:
         return torch.linalg.norm(comm.all_gather(local.reshape(1),
                                                  self.mesh))
 
+    def _all_windows(self, v: torch.Tensor, m: int) -> torch.Tensor:
+        """Every rank's v [*lead, k] (k <= m: padded to m), as
+        [*lead, N*m], rank by rank."""
+        buf = torch.nn.functional.pad(v, (0, m - v.shape[-1]))
+        allv = comm.all_gather(buf, self.mesh)          # [N, *lead, m]
+        return allv.movedim(0, -2).reshape(tuple(v.shape[:-1])
+                                           + (self.size * m,))
+
     def gather(self, v: torch.Tensor) -> torch.Tensor:
-        """The whole vector from every rank's window (v: this rank's)."""
+        """The whole vectors (the last axis) from every rank's window (v:
+        this rank's)."""
         if self.size == 1:
             return v
-        buf = torch.nn.functional.pad(v, (0, self.m_rows - v.shape[0]))
-        allv = comm.all_gather(buf, self.mesh).reshape(-1)
+        allv = self._all_windows(v, self.m_rows)
         if self.rows_identity:
             return allv
         t = self._tables(v.device)
-        out = torch.empty(self.n, dtype=v.dtype, device=v.device)
-        out[t["rows_all"]] = allv[t["take_rows"]]
+        out = torch.empty(tuple(v.shape[:-1]) + (self.n,), dtype=v.dtype,
+                          device=v.device)
+        out[..., t["rows_all"]] = allv[..., t["take_rows"]]
         return out
+
+    # -- window -> whole: the inverses of the cuts -----------------------
+    def gather_storage(self, v: torch.Tensor) -> torch.Tensor:
+        """The whole storage vectors (the last axis) from every rank's
+        window storage: one all-gather, then the inverse of
+        ``reduce_scatter_storage``'s permutation.  A BSR tail's block
+        shared by two windows arrives twice with the same values."""
+        if self.size == 1:
+            return v
+        allv = self._all_windows(v, self.m_sto)
+        t = self._tables(v.device)
+        out = torch.zeros(tuple(v.shape[:-1]) + (self.layout.n_storage,),
+                          dtype=v.dtype, device=v.device)
+        out[..., t["sto_all"]] = allv[..., t["take_sto"]]
+        return out
+
+    def gather_lattice(self, v: torch.Tensor, lead: int) -> torch.Tensor:
+        """The whole flat lattice [*lead axes, n_cp] from every rank's
+        ``lattice_local`` window [*lead axes, c1 - c0] (equal pieces: the
+        windows are cut only where they divide)."""
+        if not self.even:
+            raise ValueError("lattice windows are cut only where they "
+                             "divide the mesh")
+        if self.size == 1:
+            return v
+        return self._all_windows(v.contiguous(), v.shape[-1])
 
     def reduce_scatter_rows(self, v: torch.Tensor) -> torch.Tensor:
         """The window of the sum over ranks of the whole vectors v."""
@@ -254,15 +299,36 @@ def constrain(rows: Optional[RowWindow], v, storage: bool = False):
     return rows.local_storage(v) if storage else rows.local(v)
 
 
-def held(rows: Optional[RowWindow], record: dict, v,
+def held(rows: Optional[RowWindow], record: dict, key: str,
          storage: bool = False):
-    """A row-shaped cache of ``record`` (a state of
-    ``parallel.shard_domain_state``, or its refined record) on the
-    window: as it stands where ``shard_domain_state`` cut the record to
-    this window (``record["cut_to"]``), else ``constrain``-ed here."""
-    if rows is None or record.get("cut_to") is rows:
+    """A row-shaped cache ``record[key]`` (of a state of
+    ``parallel.shard_domain_state``, or of its refined record) as a step
+    over ``rows`` needs it: as it stands where the record is on that
+    layout (uncut for a whole step, ``record["cut_to"]`` the step's
+    window); on the window (``constrain``) where a row-sharded step
+    reads an uncut record; whole (``uncut``) where a whole step reads a
+    cut one.  A record cut to another window is refused."""
+    v = record.get(key)
+    cut = record.get("cut_to")
+    if v is None or cut is rows:
         return v
+    if rows is None:
+        return uncut(record, key, cut.gather_storage if storage
+                     else cut.gather)
+    if cut is not None:
+        raise ValueError(f"{key!r} is held on another row window")
     return constrain(rows, v, storage)
+
+
+def uncut(record: dict, key: str, gather):
+    """``gather(record[key])``: the whole array of a cut record's
+    ``key``, gathered from every rank's window at the first call and
+    kept in the record (``record["uncut"]``), so that a whole step
+    gathers once.  A collective: every rank of the mesh calls it."""
+    cache = record.setdefault("uncut", {})
+    if key not in cache:
+        cache[key] = gather(record[key])
+    return cache[key]
 
 
 def put_divisible(v, sharding: Sharding, mesh):
@@ -317,6 +383,28 @@ def local_mg_state(mg_state, rows: RowWindow):
     return tuple(out)
 
 
+def whole_mg_state(mg_state, shape):
+    """The inverse of ``local_mg_state``: the multigrid state with its
+    fine level gathered back from every rank's window (the operator's
+    storage, ``inv_diag``, ``mask``, ``inv_diag_blk``; ``shape`` the
+    fine lattice's shape) and no "rows"; a whole state is returned as it
+    is.  A collective: every rank of the window's mesh calls it."""
+    rows = mg_state[0].get("rows")
+    if rows is None:
+        return mg_state
+    out = [dict(e) for e in mg_state]
+    e0 = out[0]
+    del e0["rows"]
+    if "A" in e0:
+        e0["A"] = OffsetMatrix.from_values(
+            rows.gather_storage(e0["A"].vals), rows.layout)
+    for k, lead in (("inv_diag", 1), ("mask", 1), ("inv_diag_blk", 2)):
+        if k in e0:
+            e0[k] = rows.gather_lattice(e0[k], lead).reshape(
+                tuple(e0[k].shape[:lead]) + tuple(shape))
+    return tuple(out)
+
+
 class RowShardedMGOperator:
     """A multigrid-preconditioned operator (multigrid.MGOperator,
     auxmg.AuxMGOperator or auxmg.SparseInnerOp) whose state runs its fine
@@ -355,6 +443,12 @@ class RowShardedOp:
 
     def mv(self, x):
         return self.inner.mv(self.row_window.gather(x))
+
+    def tmv(self, x):
+        """The window's rows of A.T x (x: the window's rows): every
+        window's share (``OffsetMatrix.tmv`` over the window), summed in
+        rank order onto the windows (``reduce_scatter_rows``)."""
+        return self.row_window.reduce_scatter_rows(self.inner.tmv(x))
 
     def diag(self, *a, **kw):
         return self.inner.diag()

@@ -948,9 +948,10 @@ class FEM_Domain:
         """The refined record with the sentinels of save_freezes in place
         of the state's volume tables and the float64 fields, and without
         what the steps derive from the freeze (the float64 residual's
-        matrices, the two-float mode's packed pairs)."""
+        matrices, the two-float mode's packed pairs, and those of other
+        row windows)."""
         ref = {k: v for k, v in ref.items()
-               if k not in ("A_mats", "A_packed")}
+               if k not in ("A_mats", "A_packed", "windows")}
         if ref.get("wp") is not None:
             wp = []
             for w, wps in zip(ref["wp"], self.state["wp"]):

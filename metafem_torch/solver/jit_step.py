@@ -31,7 +31,7 @@ from ..linsolve.block_offset import OffsetMatrix
 from ..linsolve.precond import pr_jacobi
 from ..parallel.rowshard import (RowShardedMGOperator, RowShardedOp,
                                  constrain, held, local_mg_state,
-                                 row_window)
+                                 row_window, uncut, whole_mg_state)
 from .time_domain import initialize_dx, x_star_of
 
 
@@ -40,14 +40,9 @@ def combine_klin(state, K_params, rows=None) -> torch.Tensor:
     linear tangent from the components frozen by
     ``freeze_linear_tangent``, one scalar-times-vector add per time
     level.  ``rows``: a row-sharded step's window (the window's
-    storage); a window-cut stack (``parallel.shard_domain_state``) in a
-    whole step is refused."""
-    K_td = state["K_linear_td"]
-    if rows is not None:
-        K_td = held(rows, state, K_td, storage=True)
-    elif state.get("cut_to") is not None:
-        raise ValueError("the state's K_linear_td is a row window: step "
-                         "it with rowshard_mesh")
+    storage); a whole step on a state that ``shard_domain_state`` cut
+    gathers the stack back once (``rowshard.held``)."""
+    K_td = held(rows, state, "K_linear_td", storage=True)
     K = float(K_params[0]) * K_td[0]
     for td in range(1, K_td.shape[0]):
         K = K + float(K_params[td]) * K_td[td]
@@ -69,25 +64,40 @@ def _row_window(domain, rowshard_mesh):
 
 
 def _sharded_ops(rows):
-    """(A_of(vals), norm, gather, mg_state_of) of a row-sharded step, or
-    of a whole one (``rows`` None)."""
+    """(A_of(vals), norm, gather) of a row-sharded step, or of a whole
+    one (``rows`` None)."""
     if rows is None:
-        return (None, torch.linalg.norm, lambda v: v, lambda mg: mg)
+        return None, torch.linalg.norm, lambda v: v
 
     def A_of(vals):
         return RowShardedOp(OffsetMatrix.from_values(
             vals, rows.layout, rows.mine), rows)
-    return (A_of, rows.norm, rows.gather,
-            lambda mg: local_mg_state(mg, rows))
+    return A_of, rows.norm, rows.gather
 
 
-def _whole_mg(mg):
-    """A frozen multigrid state for a whole step (one that
-    ``shard_domain_state`` cut to a window is refused)."""
-    if mg is not None and mg[0].get("rows") is not None:
-        raise ValueError("the state's multigrid fine level is a row "
-                         "window: step it with rowshard_mesh")
-    return mg
+def _frozen_mg(state, rows, hier):
+    """The frozen multigrid state (``setup_mg``) on the step's layout:
+    its fine level on the window for a row-sharded step
+    (``local_mg_state``), whole for a whole step (gathered once from a
+    state that ``shard_domain_state`` cut, ``whole_mg_state``)."""
+    mg = state["mg_frozen"]
+    if rows is not None:
+        return local_mg_state(mg, rows)
+    if mg[0].get("rows") is None:
+        return mg
+    return uncut(state, "mg_frozen",
+                 lambda m: whole_mg_state(m, hier.shapes[0]))
+
+
+def _matrices(ref: dict, rows) -> dict:
+    """Where a refined step keeps the matrices it builds from the record
+    ``ref`` (``A_mats``, ``A_packed``): the record itself where the step
+    runs on the record's own layout (``rows`` is its ``cut_to``), else a
+    dict per window kept in the record."""
+    if rows is ref.get("cut_to"):
+        return ref
+    return ref.setdefault("windows", {}).setdefault(
+        None if rows is None else rows.mine, {})
 
 
 def make_jitted_step(domain, sv_func: Callable = krylov.bicgstab,
@@ -123,14 +133,15 @@ def make_jitted_step(domain, sv_func: Callable = krylov.bicgstab,
     ``parallel.shard_domain_state``; the assembly lands reduce-scattered
     on this rank's row window, the Krylov vectors hold the window's
     rows, every product gathers x and every dot all-reduces over the
-    mesh, and x and dx come back whole on every rank.  Multigrid needs
-    ``reuse_mg`` there (the frozen state's fine level runs on the
-    window)."""
+    mesh, and x and dx come back whole on every rank.  Multigrid runs
+    its fine level on the window: set up per step from the window's
+    predictor tangent (``multigrid.mg_setup`` of a ``RowShardedOp``), or
+    the frozen state's, cut at the step.  Without ``rowshard_mesh`` a
+    state of ``shard_domain_state`` steps whole: its cut caches are
+    gathered back once (``rowshard.held``, ``_frozen_mg``), on every
+    rank of its mesh."""
     rows = _row_window(domain, rowshard_mesh)
-    if rows is not None and precond == "mg" and not reuse_mg:
-        raise ValueError("rowshard_mesh with precond='mg' needs "
-                         "reuse_mg=True and domain.setup_mg()")
-    A_sh, norm, gather, mg_of = _sharded_ops(rows)
+    A_sh, norm, gather = _sharded_ops(rows)
     mg_hier = None
     if precond == "mg":
         from ..linsolve import multigrid
@@ -193,8 +204,8 @@ def make_jitted_step(domain, sv_func: Callable = krylov.bicgstab,
         st["x_star"] = x
         if rows is not None:
             st["row_window"] = rows
-        st["K_linear"] = (combine_klin(st, K_params, rows) if static_k_linear
-                          else k_linear(st))
+        st["K_linear"] = (combine_klin(state, K_params, rows)
+                          if static_k_linear else k_linear(st))
 
         def res_of(dx):
             st2 = dict(st)
@@ -206,13 +217,12 @@ def make_jitted_step(domain, sv_func: Callable = krylov.bicgstab,
         res = norm_n(residue)
         mg_state = None
         if mg_hier is not None:
-            # set up once per step from the predictor tangent and frozen
-            # across the Newton iterations
-            mg_state = (mg_of(st["mg_frozen"]) if reuse_mg
+            # set up once per step from the predictor tangent (a
+            # row-sharded step's on its window) and frozen across the
+            # Newton iterations
+            mg_state = (_frozen_mg(state, rows, mg_hier) if reuse_mg
                         else multigrid.mg_setup(mg_hier, A_of(K_total),
                                                 st.get("mg_mask")))
-            if rows is None:
-                mg_state = _whole_mg(mg_state)
         res_prev = float(np.finfo(np.float32).max)
         it = 0
         while res > tol and it < max_newton and res < stall_ratio * res_prev:
@@ -302,7 +312,7 @@ def make_refined_step(domain, sv_func: Callable = krylov.bicgstab,
     if residual_mode == "df32" and domain.dtype != torch.float32:
         raise ValueError("residual_mode='df32' expects a float32 domain")
     rows = _row_window(domain, rowshard_mesh)
-    A_sh, norm, gather, mg_of = _sharded_ops(rows)
+    A_sh, norm, gather = _sharded_ops(rows)
     mg_hier = None
     aux_static = None
     if precond == "mg":
@@ -371,9 +381,8 @@ def make_refined_step(domain, sv_func: Callable = krylov.bicgstab,
         if mg_hier is not None or aux_static is not None:
             Aw = getattr(A, "inner", A)         # a row-sharded A's window
             if mg_hier is not None:
-                mg = mg_of(state["mg_frozen"])
-                op = multigrid.MGOperator(Aw, mg if rows is not None
-                                          else _whole_mg(mg), mg_hier)
+                op = multigrid.MGOperator(
+                    Aw, _frozen_mg(state, rows, mg_hier), mg_hier)
             else:
                 desc, hier = aux_static
                 op = auxmg.AuxMGOperator(
@@ -430,16 +439,17 @@ def make_refined_step(domain, sv_func: Callable = krylov.bicgstab,
         K_params64_t = device_constant(K_params64, f64, dev)
 
         ref = state["refined"]
-        if "A_mats" not in ref:
+        mats = _matrices(ref, rows)
+        if "A_mats" not in mats:
             # the frozen A_td as matrices kept in the freeze's record, so
             # that each packs its values (dense groups and tail) once (a
             # row-sharded step: the window's rows, products of a whole x)
-            ref["A_mats"] = [A_of(held(rows, ref, a, storage=True))
-                             for a in ref["A"]]
+            mats["A_mats"] = [A_of(a) for a in held(rows, ref, "A",
+                                                   storage=True)]
             if rows is not None:
-                ref["A_mats"] = [a.inner for a in ref["A_mats"]]
-        A64 = ref["A_mats"]
-        b64 = held(rows, ref, ref["b"])
+                mats["A_mats"] = [a.inner for a in mats["A_mats"]]
+        A64 = mats["A_mats"]
+        b64 = held(rows, ref, "b")
         K_lin = combine_klin(state, K_params64.astype(s_np), rows)
 
         def residual_and_knl(dx, with_grad=True):
@@ -484,17 +494,18 @@ def _df_operator(ref: dict, layout, rows=None) -> tuple:
     (``twofloat.df_pack``), kept in the freeze's record.  ``rows``: a
     row-sharded step's window (the pairs of its rows and storage, packed
     over its plans)."""
-    def con(v, storage=False):
-        return held(rows, ref, v, storage)
     if "A_hi" not in ref:
         A, b = tf.df_from_f64(ref["A"]), tf.df_from_f64(ref["b"])
         ref.update(A_hi=A.hi, A_lo=A.lo, b_hi=b.hi, b_lo=b.lo)
-    A = [tf.DF(con(hi, True), con(lo, True))
-         for hi, lo in zip(ref["A_hi"], ref["A_lo"])]
-    if "A_packed" not in ref:
-        ref["A_packed"] = [tf.df_pack(a, layout, window=None if rows is None
-                                      else rows.mine) for a in A]
-    return A, tf.DF(con(ref["b_hi"]), con(ref["b_lo"])), ref["A_packed"]
+    A = [tf.DF(hi, lo) for hi, lo in zip(held(rows, ref, "A_hi", True),
+                                         held(rows, ref, "A_lo", True))]
+    mats = _matrices(ref, rows)
+    if "A_packed" not in mats:
+        mats["A_packed"] = [tf.df_pack(a, layout,
+                                       window=None if rows is None
+                                       else rows.mine) for a in A]
+    return (A, tf.DF(held(rows, ref, "b_hi"), held(rows, ref, "b_lo")),
+            mats["A_packed"])
 
 
 def _df32_step(domain, A_of, solve_f32, inner_tol, max_refine, stall_ratio,
@@ -515,7 +526,7 @@ def _df32_step(domain, A_of, solve_f32, inner_tol, max_refine, stall_ratio,
     bfs = pattern.basicfield_size
     f32, f64 = torch.float32, torch.float64
     nonaff_maps = domain._device_maps["nonaff_res"]
-    _, norm, gather, _ = _sharded_ops(rows)
+    _, norm, gather = _sharded_ops(rows)
     window = None if rows is None else rows.mine
     touched_at = None
     if rows is not None and "r_touched" in nonaff_maps:
